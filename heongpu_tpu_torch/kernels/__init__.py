@@ -1,0 +1,41 @@
+"""Hand-written CUDA kernels for Hopper, bound with ctypes.
+
+The wrappers live beside their plain torch versions (ops/ntt.py:
+`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`); this module
+builds and loads the library (kernels/build.py) and keeps the launch counts:
+each wrapper adds one to its entry of `launches` where it launches its kernel,
+so a run can show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+launches = {"ntt_fwd": 0, "ntt_inv": 0, "mac_keys": 0, "base_conv": 0}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def library():
+    """The loaded kernel library, built from csrc/ at first use."""
+    global _lib
+    if _lib is None:
+        path, _ = build.build()
+        _lib = build.load(path)
+    return _lib
+
+
+def stream_of(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -1,0 +1,68 @@
+"""Method-II (hybrid) keyswitching (port of heongpu_tpu/ops/keyswitch2.py,
+the staged path).
+
+The k Q-primes split into d̃ = ceil(k/alpha) consecutive groups; each digit
+is the exact value [c]_{D_j} carried into the full Q·P basis by FastBconv,
+transformed, MAC'd against the key halves, transformed back, and divided by
+P = Π special primes one prime at a time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import torch
+
+from . import ntt as nttm
+from . import rns
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KS2Level:
+    """Method-II tables for one level (a fixed active-prime prefix)."""
+    alpha: int
+    groups: Tuple[Tuple[int, ...], ...]   # active prime indices per digit
+    num_active: int
+    convs: Tuple[rns.BaseConv, ...]       # group primes -> active Q + P basis
+    div_stages: Tuple[rns.DivRoundLastq, ...]  # divide by each special prime
+
+
+def build_ks2_level(q_primes: Sequence[int], p_primes: Sequence[int],
+                    ka: int, alpha: int, device="cpu") -> KS2Level:
+    """Tables for the level with active primes q_primes[:ka]."""
+    active = [int(q) for q in q_primes[:ka]]
+    specials = [int(q) for q in p_primes]
+    groups = tuple(tuple(range(j, min(j + alpha, ka))) for j in range(0, ka, alpha))
+    target_basis = active + specials
+    convs = tuple(rns.BaseConv.build([active[i] for i in g], target_basis, device)
+                  for g in groups)
+    stages = []
+    remaining = list(target_basis)
+    for sp in reversed(specials):
+        remaining = remaining[:-1]
+        stages.append(rns.DivRoundLastq.build(remaining, sp, device))
+    return KS2Level(alpha=alpha, groups=groups, num_active=ka,
+                    convs=convs, div_stages=tuple(stages))
+
+
+def keyswitch2(poly_q, k0, k1, ks2: KS2Level, ntt_qp_level: nttm.NttTables,
+               base_qp_level: rns.Base, in_ntt: bool, out_ntt: bool,
+               ntt_q_level: nttm.NttTables):
+    """Method-II keyswitch of one poly over the level basis.
+
+    poly_q: (ka, n); k0/k1: (d̃, ka+alpha, n) NTT + Montgomery (already sliced
+    to the level).  Returns (d0, d1) over the active Q primes."""
+    if in_ntt:
+        poly_q = nttm.ntt_inv(poly_q, ntt_q_level)
+    digits = torch.stack([conv(poly_q[..., g[0]: g[-1] + 1, :])
+                          for conv, g in zip(ks2.convs, ks2.groups)], dim=-3)
+    d_ntt = nttm.ntt_fwd(digits, ntt_qp_level)            # (d̃, ka+alpha, n)
+    acc = nttm.ntt_inv(rns.mac_keys(d_ntt, k0, k1, base_qp_level), ntt_qp_level)
+    for stage in ks2.div_stages:
+        acc = stage(acc)
+    d0, d1 = acc[0], acc[1]
+    if out_ntt:
+        d0 = nttm.ntt_fwd(d0, ntt_q_level)
+        d1 = nttm.ntt_fwd(d1, ntt_q_level)
+    return d0, d1
