@@ -10,10 +10,12 @@ parameters, and the tests assert that the tables agree.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .models import ckks, ringkit
+from .models import ckks, ringkit, tfhe, tfhe_int
 from .ops import modmath as mm
 
 
@@ -24,9 +26,14 @@ def _t(a, device):
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t):
     """Residues -> the reference's numpy uint32 layout (int32 tensors are
-    reinterpreted bit for bit)."""
+    reinterpreted bit for bit).  A key, ciphertext or HUint becomes a dict of
+    its fields, each converted the same way."""
+    if dataclasses.is_dataclass(t) and not isinstance(t, type):
+        return {f.name: to_numpy(getattr(t, f.name)) for f in dataclasses.fields(t)}
+    if not isinstance(t, torch.Tensor):
+        return t
     a = t.detach().cpu().contiguous().numpy()
     return a.view(np.uint32) if a.dtype == np.int32 else a
 
@@ -51,3 +58,24 @@ def ciphertext_from_numpy(c, size: int, level: int, scale: float, device="cpu"):
 
 def plaintext_from_numpy(m, level: int, scale: float, device="cpu"):
     return ckks.Plaintext(_t(m, device), int(level), float(scale))
+
+
+def tfhe_secret_key_from_numpy(lwe, rlwe, device="cpu"):
+    return tfhe.SecretKey(_t(lwe, device), _t(rlwe, device))
+
+
+def tfhe_boot_key_from_numpy(bk, ksk_a, ksk_b, device="cpu"):
+    return tfhe.BootKey(_t(bk, device), _t(ksk_a, device), _t(ksk_b, device))
+
+
+def tfhe_boot_key2_from_numpy(bk2, ksk_a, ksk_b, device="cpu"):
+    return tfhe.BootKey2(_t(bk2, device), _t(ksk_a, device), _t(ksk_b, device))
+
+
+def tfhe_ciphertext_from_numpy(a, b, variance: float = 0.0, device="cpu"):
+    return tfhe.Ciphertext(_t(a, device), _t(b, device), float(variance))
+
+
+def huint_from_numpy(a, b, variance: float, width: int, count: int, device="cpu"):
+    return tfhe_int.HUint(tfhe_ciphertext_from_numpy(a, b, variance, device),
+                          int(width), int(count))

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, bound with ctypes.
 
 The wrappers live beside their plain torch versions (ops/ntt.py:
-`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`); this module
+`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`;
+ops/tfhe_kernel.py: `blind_rotate_cuda`); this module
 builds and loads the library (kernels/build.py) and keeps the launch counts:
 each wrapper adds one to its entry of `launches` where it launches its kernel,
 so a run can show that the main path went through the kernels.
@@ -13,7 +14,8 @@ import torch
 
 from . import build
 
-launches = {"ntt_fwd": 0, "ntt_inv": 0, "mac_keys": 0, "base_conv": 0}
+launches = {"ntt_fwd": 0, "ntt_inv": 0, "mac_keys": 0, "base_conv": 0,
+            "blind_rotate": 0, "blind_rotate2": 0}
 
 _lib = None
 

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in csrc/ into one shared library and load it.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` compiles every csrc/*.cu into
+Every csrc/*.cu is compiled by its own `nvcc -gencode
+arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c`, all started
+together, and the objects are linked by `nvcc -shared` into
 heongpu_tpu_torch/_build/libhf_kernels_<hash>.so, where <hash> covers the
 sources and the flags, so a changed source builds anew at first use and an
 unchanged one is loaded as it is.  The sources have a plain C interface and
@@ -16,12 +17,15 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
+NVCC_TIMEOUT = 600
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +34,7 @@ SIGNATURES = {
     "hf_ntt": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "hf_mac_keys": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hf_base_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hf_blind_rotate": [_I, _P, _P, _P, _P, _I, _I] + [_P] * 16 + [_I, _P],
 }
 
 
@@ -47,11 +52,18 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhf_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}) on {cmd[-1]}:\n{res.stderr}")
+    return res.stdout + res.stderr
 
 
 def build() -> tuple[Path, str]:
@@ -60,18 +72,16 @@ def build() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, res.stdout + res.stderr
+    srcs = sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            log = list(pool.map(lambda src, obj: _run([nvcc(), *COMPILE_FLAGS, "-c", "-o", obj,
+                                                       str(src)]), srcs, objs))
+        so = os.path.join(tmp, "lib.so")
+        log.append(_run([nvcc(), *LINK_FLAGS, "-o", so, *objs]))
+        os.replace(so, path)
+    return path, "".join(log)
 
 
 def load(path: Path) -> ctypes.CDLL:

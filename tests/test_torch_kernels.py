@@ -114,7 +114,8 @@ def test_slice_on_card_matches_cpu(dev):
     c2 = ckks.encrypt(ctx, pk, ckks.encode(ctx, z[::-1].copy()), g)
     kernels.reset_launches()
     out = ckks.rescale(ctx, ckks.relinearize(ctx, ckks.multiply(ctx, c1, c2), rk))
-    assert all(kernels.launches.values()), kernels.launches
+    ckks_kernels = ("ntt_fwd", "ntt_inv", "mac_keys", "base_conv")
+    assert all(kernels.launches[k] for k in ckks_kernels), kernels.launches
     assert np.abs(ckks.decode(ctx, ckks.decrypt(ctx, sk, out)) - z * z[::-1]).max() < 1e-3
 
     cctx = ckks.make_context(n, q_bits, alpha=2)
@@ -122,3 +123,89 @@ def test_slice_on_card_matches_cpu(dev):
     want = ckks.rescale(cctx, ckks.relinearize(
         cctx, ckks.multiply(cctx, cpu(c1), cpu(c2)), ckks.KSKey(rk.k0.cpu(), rk.k1.cpu())))
     _equal(out.c.cpu(), want.c)
+
+
+# ---------------------------------------------------------------------------
+# TFHE: K1 on the 2-limb N=1024 table, K3/K4 (the blind rotation) against the
+# plain chains, and gates through the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tfhe_keys():
+    """lwe_n -> (ctx, generator, sk, BootKey, BootKey2) on the card, built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device for the hand-written kernels")
+    from heongpu_tpu_torch.models import tfhe
+    from heongpu_tpu_torch.utils import rng
+    cache = {}
+
+    def get(lwe_n):
+        if lwe_n not in cache:
+            ctx = tfhe.make_context(lwe_n, device="cuda")
+            g = rng.new_generator(lwe_n, "cuda")
+            sk = tfhe.keygen_secret(g, lwe_n, device="cuda")
+            cache[lwe_n] = (ctx, g, sk, tfhe.keygen_boot(ctx, g, sk),
+                            tfhe.keygen_boot_unrolled(ctx, g, sk))
+        return cache[lwe_n]
+    return get
+
+
+def test_ntt_kernel_tfhe_table(dev):
+    from heongpu_tpu_torch.models import tfhe
+    tb = tfhe.make_context(16, device=dev).ntt
+    x = _residues(np.random.default_rng(7), list(tb.primes), (37, 2, 2, 1024), dev)
+    f = tntt.ntt_fwd(x, tb)
+    _equal(f, tntt.ntt_fwd_plain(x, tb))
+    i = tntt.ntt_inv(f, tb)
+    _equal(i, tntt.ntt_inv_plain(f, tb))
+    _equal(i, x)
+
+
+@pytest.mark.parametrize("unrolled", [False, True])
+@pytest.mark.parametrize("lwe_n,batch", [(16, 1), (16, 8), (16, 37), (512, 1), (512, 8),
+                                         (512, 37)])
+def test_blind_rotate_kernel_matches_plain(tfhe_keys, lwe_n, batch, unrolled):
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import tfhe
+    from heongpu_tpu_torch.ops import tfhe_kernel as tk
+    ctx, g, sk, bk, bk2 = tfhe_keys(lwe_n)
+    bits = np.random.default_rng(batch).integers(0, 2, batch)
+    acc, a_t = tfhe._boot_prologue(ctx, tfhe.encrypt(ctx, sk, bits, g))
+    key = bk2.bk2 if unrolled else bk.bk
+    plain = tfhe.blind_rotate2_plain if unrolled else tfhe.blind_rotate_plain
+    name = "blind_rotate2" if unrolled else "blind_rotate"
+    before = kernels.launches[name]
+    got = (tk.blind_rotate2 if unrolled else tk.blind_rotate)(acc, a_t, key, ctx)
+    assert kernels.launches[name] == before + 1
+    _equal(got, plain(acc, a_t, key, ctx))
+
+
+@pytest.mark.parametrize("unrolled", [False, True])
+def test_gates_on_card(tfhe_keys, unrolled):
+    """Truth tables at STD128 (n=512) through the kernel path, B=64."""
+    from heongpu_tpu_torch.models import tfhe
+    ctx, g, sk, bk, bk2 = tfhe_keys(512)
+    key = bk2 if unrolled else bk
+    r = np.random.default_rng(3)
+    x, y, s = (r.integers(0, 2, 64).astype(bool) for _ in range(3))
+    cx, cy, cs = (tfhe.encrypt(ctx, sk, v, g) for v in (x, y, s))
+    want = {"NAND": ~(x & y), "AND": x & y, "OR": x | y, "NOR": ~(x | y),
+            "XOR": x ^ y, "XNOR": ~(x ^ y)}
+    for gate, w in want.items():
+        np.testing.assert_array_equal(tfhe.decrypt(ctx, sk, getattr(tfhe, gate)(ctx, key, cx, cy)),
+                                      w, err_msg=gate)
+    np.testing.assert_array_equal(tfhe.decrypt(ctx, sk, tfhe.MUX(ctx, key, cs, cx, cy)),
+                                  np.where(s, x, y))
+
+
+def test_blind_rotate_wrappers_reject_bad_input(tfhe_keys):
+    from heongpu_tpu_torch.models import tfhe
+    from heongpu_tpu_torch.ops import tfhe_kernel as tk
+    ctx, g, sk, bk, _ = tfhe_keys(16)
+    acc, a_t = tfhe._boot_prologue(ctx, tfhe.encrypt(ctx, sk, np.ones(4), g))
+    for args in ((acc.cpu(), a_t.cpu(), bk.bk.cpu()),
+                 (acc.to(torch.int64), a_t, bk.bk),
+                 (acc, a_t.t().contiguous().t(), bk.bk),
+                 (acc, a_t[:, :12].contiguous(), bk.bk[:12].contiguous())):
+        with pytest.raises(ValueError):
+            tk.blind_rotate_cuda(*args, ctx)
