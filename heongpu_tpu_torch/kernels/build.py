@@ -4,8 +4,9 @@ Every csrc/*.cu is compiled by its own `nvcc -gencode
 arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c`, all started
 together, and the objects are linked by `nvcc -shared` into
 heongpu_tpu_torch/_build/libhf_kernels_<hash>.so, where <hash> covers the
-sources and the flags, so a changed source builds anew at first use and an
-unchanged one is loaded as it is.  The sources have a plain C interface and
+sources, the shared headers (csrc/*.cuh) and the flags, so a changed source
+builds anew at first use and an unchanged one is loaded as it is.  The
+sources share csrc/ntt_common.cuh, have a plain C interface and
 are bound with ctypes (no PyTorch headers, so a build takes seconds).
 """
 
@@ -35,6 +36,7 @@ SIGNATURES = {
     "hf_mac_keys": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hf_base_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hf_blind_rotate": [_I, _P, _P, _P, _P, _I, _I] + [_P] * 16 + [_I, _P],
+    "hf_keyswitch2_fused": [_P] * 7 + [_I] * 6 + [_P] * 15 + [_P],
 }
 
 
@@ -53,7 +55,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhf_kernels_{h.hexdigest()[:16]}.so"

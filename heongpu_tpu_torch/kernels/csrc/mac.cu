@@ -8,8 +8,9 @@
 // R = 2^32), at most 16 of them per accumulator (16 products of values below
 // 2^30 fit in 64 bits), then folds the sum X to X*R^-1 mod p with one REDC
 // after a Barrett pre-reduction of the high word; folds of successive
-// 16-term chunks are added mod p.  The result, sum d*k*R^-1 mod p, is exact,
-// so it equals the plain int64 version bit for bit.
+// 16-term chunks are added mod p (fold: ntt_common.cuh).  The result,
+// sum d*k*R^-1 mod p, is exact, so it equals the plain int64 version bit for
+// bit.
 //
 // What bounds it on this card: device-memory bandwidth.  mac_keys reads each
 // digit once for both key halves (3 words read per 2 products), and the
@@ -17,29 +18,12 @@
 // each input limb once per output limb; its conversion matrix is tiny and
 // is served from the constant cache / L1.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-typedef uint32_t u32;
-typedef uint64_t u64;
+#include "ntt_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 16;
-
-__device__ __forceinline__ u32 csub(u32 a, u32 m) { return a >= m ? a - m : a; }
-
-// X = hi*2^32 + lo  ->  X * 2^-32 mod p, canonical.
-__device__ __forceinline__ u32 fold(u64 acc, u32 p, u32 pinv, u32 mu) {
-  const u32 hi = static_cast<u32>(acc >> 32);
-  const u32 lo = static_cast<u32>(acc);
-  u32 hm = hi - __umulhi(hi, mu) * p;            // Barrett, mu = floor(2^32/p)
-  hm = csub(csub(csub(hm, p), p), p);
-  const u32 m = lo * pinv;                       // pinv = -p^-1 mod 2^32
-  const u32 t = hm + __umulhi(m, p) + (lo != 0u);  // < 2p + 1
-  return csub(csub(t, p), p);
-}
 
 __global__ void __launch_bounds__(kThreads)
 mac_keys_kernel(const u32* __restrict__ d, const u32* __restrict__ k0,

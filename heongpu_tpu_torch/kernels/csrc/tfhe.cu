@@ -39,11 +39,7 @@
 // card at the same chain latency.  Making one chain shorter is later work: a cluster
 // per gate, key slices by TMA ahead of use, a warp-level transform without barriers.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-typedef uint32_t u32;
-typedef uint64_t u64;
+#include "ntt_common.cuh"   // csub, shoup_lazy
 
 namespace {
 
@@ -80,14 +76,8 @@ struct Limbs {
   __device__ u32 R1(int l) const { return l ? r1[1] : r1[0]; }
 };
 
-__device__ __forceinline__ u32 csub(u32 a, u32 m) { return a >= m ? a - m : a; }
 __device__ __forceinline__ u32 add_mod(u32 a, u32 b, u32 p) { return csub(a + b, p); }
 __device__ __forceinline__ u32 sub_mod(u32 a, u32 b, u32 p) { return a >= b ? a - b : a + p - b; }
-
-// a*w mod p in [0, 2p) for any 32-bit a, w < p, w_sh = floor(w*2^32/p).
-__device__ __forceinline__ u32 shoup_lazy(u32 a, u32 w, u32 w_sh, u32 p) {
-  return a * w - __umulhi(a, w_sh) * p;
-}
 
 // a*b*2^-32 mod p (REDC), a, b < p < 2^30; canonical result.
 __device__ __forceinline__ u32 mont_mul(u32 a, u32 b, u32 p, u32 pinv) {

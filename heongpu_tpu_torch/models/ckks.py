@@ -1,12 +1,16 @@
-"""CKKS scheme, the main-path subset (port of heongpu_tpu/models/ckks.py).
+"""CKKS scheme (port of heongpu_tpu/models/ckks.py): the multiply ->
+relinearize -> rescale path and the rotation path.
 
-Context, keygen, host encoder, encrypt / decrypt and the leveled arithmetic
-of the multiply -> relinearize -> rescale path, on one torch device.
-Ciphertexts live in the NTT domain over the level's prime prefix, exactly as
-in the reference, and every op returns the reference's residues.  On a CUDA
-context every NTT and every keyswitch MAC / base conversion runs the
-hand-written kernels; the tensor product, the divide-by-P stages, rescale and
-the encrypt pass are plain torch.
+Context, keygen (secret, public, relinearization, Galois, switching keys),
+host encoder, encrypt / decrypt, the leveled arithmetic, rotations,
+conjugation, key switching, hoisted rotations and monomial products, on one
+torch device.  Ciphertexts live in the NTT domain over the level's prime
+prefix, exactly as in the reference, and every op returns the reference's
+residues.  On a CUDA context every NTT runs K1, every keyswitch of one poly
+(relinearize, apply_galois, rotate, conjugate, switch_key) runs the fused
+core K5, and hoisting runs K1 and K2 (base conversion, key MAC); the tensor
+product, the Galois gathers, the divide-by-P stages, rescale and the encrypt
+pass are plain torch.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ..ops import ntt as nttm
 from ..utils import errors, nt, rng
 from ..utils.params import validate_security
 from . import ringkit
-from .ringkit import KSKey, PublicKey, RingView, SecretKey
+from .ringkit import GaloisKey, GaloisKeyOne, KSKey, PublicKey, RingView, SecretKey
 
 _prod = lambda xs: reduce(lambda a, b: a * b, xs, 1)
 
@@ -112,7 +116,7 @@ def make_context(n: int,
                  alpha: int = 1,
                  p_count: Optional[int] = None,
                  pair_scale_primes: Optional[bool] = None,
-                 device="cpu") -> CkksContext:
+                 device="cuda") -> CkksContext:
     """q_bits: bit sizes of the Q chain, q_bits[0] = base prime; `p_count`
     (default alpha) 30-bit special primes are appended; keyswitching is
     Method II with digits of `alpha` grouped primes.  Prime generation,
@@ -209,6 +213,25 @@ def _ring(ctx: CkksContext) -> RingView:
                     ctx.base_qp, ctx.ntt_qp, ctx.div_p)
 
 
+def _ring_at(ctx: CkksContext, level: int) -> RingView:
+    """Ring view over the level basis (active Q prefix + specials), so keys
+    can be generated at their use level."""
+    if level == 0:
+        return _ring(ctx)
+    ka = ctx.active(level)
+    return RingView(ctx.n, ctx.q_primes[:ka], ctx.p_primes, ctx.base_q_at(level),
+                    ctx.base_qp_at(level), ctx.ntt_qp_at(level), ctx.div_p_at(level))
+
+
+def _sk_at(ctx: CkksContext, sk: SecretKey, level: int) -> SecretKey:
+    """Secret key restricted to the level basis (limb rows sliced)."""
+    if level == 0:
+        return sk
+    ka = ctx.active(level)
+    s = torch.cat([sk.s_ntt_mont_qp[:ka], sk.s_ntt_mont_qp[ctx.k:]])
+    return SecretKey(sk.s_coeff, s, sk.hamming_weight)
+
+
 def _groups(ctx, level: int = 0):
     ka = ctx.active(level)
     return tuple(tuple(range(j, min(j + ctx.alpha, ka)))
@@ -225,6 +248,22 @@ def keygen_public(ctx, key, sk) -> PublicKey:
 
 def keygen_relin(ctx, key, sk) -> KSKey:
     return ringkit.keygen_relin(_ring(ctx), key, sk, groups=_groups(ctx))
+
+
+def keygen_galois(ctx, key, sk, steps=None, max_shift: int = 8, elts=None,
+                  a_seed=None, store_a: bool = True, include_conj: bool = True,
+                  level: int = 0, inv_form: bool = False) -> GaloisKey:
+    """Galois keys (ringkit.keygen_galois) at the level basis; a key made at
+    `level` serves levels >= level.  a_seed / store_a=False raise
+    errors.ParameterError (seeded keys are not ported)."""
+    return ringkit.keygen_galois(_ring_at(ctx, level), key, _sk_at(ctx, sk, level),
+                                 steps, max_shift, include_conj=include_conj,
+                                 groups=_groups(ctx, level), elts=elts, a_seed=a_seed,
+                                 store_a=store_a, inv_form=inv_form)
+
+
+def keygen_switch(ctx, key, sk_old, sk_new) -> KSKey:
+    return ringkit.keygen_switch(_ring(ctx), key, sk_old, sk_new, groups=_groups(ctx))
 
 
 # =========================================================================
@@ -484,7 +523,8 @@ def mod_drop(ctx, a: Ciphertext, levels: int = 1) -> Ciphertext:
 
 def _slice_key2(ctx, k_arr, ka: int, d_lvl: int):
     """Method-II key slice: first d_lvl digits, active Q limbs + all
-    specials (the key's own Q extent is derived from its shape)."""
+    specials (the key's own Q extent is derived from its shape), contiguous
+    as the kernels take it."""
     k_gen = k_arr.shape[1] - len(ctx.p_primes)
     if ka > k_gen:
         raise errors.LevelMismatchError(
@@ -512,3 +552,157 @@ def relinearize(ctx, a: Ciphertext, rk: KSKey) -> Ciphertext:
     p = _p_at(ctx, a.level)
     return Ciphertext(mm.add_mod(a.c[:2], torch.stack([d0, d1]), p),
                       2, a.level, a.scale)
+
+
+# =========================================================================
+# Rotation, conjugation and key switching (one keyswitch each)
+# =========================================================================
+
+def apply_galois(ctx, a: Ciphertext, gk1: GaloisKeyOne) -> Ciphertext:
+    errors.check_size(a.size, 2, "apply_galois")
+    p = _p_at(ctx, a.level)
+    if gk1.inv_form:
+        # sigma applied once to the combined pair: sigma(c0 + KS'(c1)) = sigma(c0) + KS(sigma(c1))
+        d0, d1 = _keyswitch_poly(ctx, a.c[1], gk1.k0, gk1.k1, a.level)
+        out = torch.stack([mm.add_mod(a.c[0], d0, p), d1])
+        return Ciphertext(polyops.apply_galois_ntt(out, gk1.perm_ntt), 2, a.level, a.scale)
+    g0 = polyops.apply_galois_ntt(a.c[0], gk1.perm_ntt)
+    g1 = polyops.apply_galois_ntt(a.c[1], gk1.perm_ntt)
+    d0, d1 = _keyswitch_poly(ctx, g1, gk1.k0, gk1.k1, a.level)
+    return Ciphertext(torch.stack([mm.add_mod(g0, d0, p), d1]), 2, a.level, a.scale)
+
+
+def rotate(ctx, a: Ciphertext, gk: GaloisKey, step: int) -> Ciphertext:
+    """Rotate slots left by `step` using the stored power-of-two key chain."""
+    n = ctx.n
+    step = step % (n // 2)
+    if step == 0:
+        return a
+    out = a
+    remaining = step
+    for j in reversed(range(16)):
+        sz = 1 << j
+        while remaining >= sz:
+            g = polyops.steps_to_galois_elt(sz, n)
+            if g in gk.keys:
+                out = apply_galois(ctx, out, gk.keys[g])
+                remaining -= sz
+            else:
+                break
+        if remaining == 0:
+            break
+    if remaining:
+        raise ValueError(f"no galois key chain reaches step {step}")
+    return out
+
+
+def conjugate(ctx, a: Ciphertext, gk: GaloisKey) -> Ciphertext:
+    return apply_galois(ctx, a, gk.keys[polyops.GALOIS_CONJ])
+
+
+def switch_key(ctx, a: Ciphertext, swk: KSKey) -> Ciphertext:
+    errors.check_size(a.size, 2, "switch_key")
+    d0, d1 = _keyswitch_poly(ctx, a.c[1], swk.k0, swk.k1, a.level)
+    p = _p_at(ctx, a.level)
+    return Ciphertext(torch.stack([mm.add_mod(a.c[0], d0, p), d1]), 2, a.level, a.scale)
+
+
+# =========================================================================
+# Hoisted rotations (decompose once, rotate many) on the staged kernels
+# =========================================================================
+
+def _hoist_key_slices(ctx, gk1, lvl):
+    """Level-sliced Method-II key pair."""
+    ka = ctx.active(lvl)
+    d_lvl = -(-ka // ctx.alpha)
+    return _slice_key2(ctx, gk1.k0, ka, d_lvl), _slice_key2(ctx, gk1.k1, ka, d_lvl)
+
+
+def hoist(ctx, a: Ciphertext):
+    """The keyswitch digits of a.c[1] over Q̃ (NTT domain, (d̃, ka+p, n)),
+    shared by many rotations: FastBconv per group (K2 base_conv on the
+    card), then the forward transform (K1)."""
+    errors.check_size(a.size, 2, "hoist")
+    lvl = a.level
+    ks2 = ctx.ks2[lvl]
+    poly = nttm.ntt_inv(a.c[1], ctx.ntt_q(lvl))
+    digs = [conv(poly[g[0]: g[-1] + 1]) for conv, g in zip(ks2.convs, ks2.groups)]
+    return nttm.ntt_fwd(torch.stack(digs), ctx.ntt_qp_at(lvl))
+
+
+def ks_finish_at(ctx, acc, level: int, out_ntt: bool = True):
+    """INTT over Q̃ + exact ÷P (alpha stages) + NTT over Q."""
+    coeff = nttm.ntt_inv(acc, ctx.ntt_qp_at(level))
+    for stage in ctx.ks2[level].div_stages:
+        coeff = stage(coeff)
+    return nttm.ntt_fwd(coeff, ctx.ntt_q(level)) if out_ntt else coeff
+
+
+def rotate_hoisted(ctx, a: Ciphertext, d_ntt, gk1: GaloisKeyOne) -> Ciphertext:
+    """sigma_g(a) from digits precomputed by `hoist`."""
+    lvl = a.level
+    pc0 = p_scale_to_qtilde(ctx, a.c[0], lvl)
+    t0, t1 = rotate_hoisted_qtilde(ctx, d_ntt, gk1, pc0, lvl)
+    return Ciphertext(ks_finish_at(ctx, torch.stack([t0, t1]), lvl), 2, lvl, a.scale)
+
+
+def rotate_hoisted_qtilde(ctx, d_ntt, gk1: GaloisKeyOne, pc0, level: int):
+    """The P-scaled sigma_g-rotated pair over Q̃ (NTT domain) before ÷P:
+    t0 = sigma(P·c0) + MAC0, t1 = MAC1, the MAC on K2 mac_keys on the card.
+    pc0 = p_scale_to_qtilde(ctx, c0, level).  inv_form keys MAC the
+    unpermuted digits and permute only the pair."""
+    base_qp = ctx.base_qp_at(level)
+    p = base_qp.col()
+    k0s, k1s = _hoist_key_slices(ctx, gk1, level)
+    if gk1.inv_form:
+        acc = rns.mac_keys(d_ntt, k0s, k1s, base_qp)
+        t0 = mm.add_mod(acc[0], pc0, p)
+        return (polyops.apply_galois_ntt(t0, gk1.perm_ntt),
+                polyops.apply_galois_ntt(acc[1], gk1.perm_ntt))
+    acc = rns.mac_keys(polyops.apply_galois_ntt(d_ntt, gk1.perm_ntt), k0s, k1s, base_qp)
+    return mm.add_mod(acc[0], polyops.apply_galois_ntt(pc0, gk1.perm_ntt), p), acc[1]
+
+
+def p_scale_to_qtilde(ctx, poly_q, level: int):
+    """P·x over the Q̃ basis from x over Q: (P mod q_i) on the Q limbs,
+    zeros on the special limbs."""
+    qs = ctx.q_primes[:ctx.active(level)]
+    P = _prod(int(p) for p in ctx.p_primes)
+    fac = torch.tensor([P % int(q) for q in qs], dtype=mm.I64, device=poly_q.device)
+    scaled = mm.shoup_mul(poly_q, fac[:, None], _p_at(ctx, level))
+    zeros = scaled.new_zeros(poly_q.shape[:-2] + (len(ctx.p_primes), ctx.n))
+    return torch.cat([scaled, zeros], dim=-2)
+
+
+# =========================================================================
+# Monomial products
+# =========================================================================
+
+def monomial_mult_tables(ctx, k_exp: int):
+    """NTT-domain pointwise tables for multiplication by X^k over all QP
+    limbs: tab[l, p] = psi_l^((2j+1)k mod 2n) at storage position p (j =
+    eval_order[p]), negated past n; and its Shoup companion.  X^(n/2)
+    multiplies every slot by i."""
+    n = ctx.n
+    psi = ctx.ntt_qp.psi.cpu().numpy().view(np.uint32).astype(np.uint64)
+    primes = np.asarray(ctx.qp_primes, np.uint64)
+    eo = nttm.eval_order(n).astype(np.int64)
+    e = ((2 * eo + 1) * (k_exp % (2 * n))) % (2 * n)
+    wrap = e >= n
+    vals = psi[:, np.where(wrap, e - n, e)]
+    vals = np.where(wrap[None, :], primes[:, None] - vals, vals)
+    sh = (vals << np.uint64(32)) // primes[:, None]
+    return (mm.u32_to_i32(vals.astype(np.uint32)).to(ctx.device),
+            mm.u32_to_i32(sh.astype(np.uint32)).to(ctx.device))
+
+
+def multiply_by_monomial(ctx, a: Ciphertext, tables) -> Ciphertext:
+    """Multiply by X^k with tables from monomial_mult_tables (scale-free)."""
+    tab = tables[0]
+    ka = ctx.active(a.level)
+    return Ciphertext(mm.mul_mod(a.c, tab[:ka], _p_at(ctx, a.level)), a.size, a.level, a.scale)
+
+
+def multiply_power_of_x(ctx: CkksContext, a: Ciphertext, k: int) -> Ciphertext:
+    """a · X^k, an NTT-domain pointwise product with the monomial tables."""
+    return multiply_by_monomial(ctx, a, monomial_mult_tables(ctx, k))

@@ -1,5 +1,6 @@
 """Shared RNS-ring key machinery (port of the full-key subset of
-heongpu_tpu/models/ringkit.py).
+heongpu_tpu/models/ringkit.py: secret, public, relinearization, switching and
+Galois keys).
 
 Key layout as in the reference: the secret key as ternary coefficients plus
 its NTT-domain Montgomery form over Q·P; public and keyswitch keys in the NTT
@@ -7,6 +8,8 @@ domain over Q·P, Montgomery form.  The Method-II grouped gadget puts P·target
 on every limb of digit j's group, so one key serves every level by prefix
 slicing.  Draw order follows the reference (uniform half first, then the
 gaussian), so DRBG-seeded keys are bit-identical to the JAX package's.
+Seed-expanded keys (`a_seed`, `store_a=False`) regenerate their uniform half
+with JAX Threefry and are not ported.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ import torch
 
 from ..ops import modmath as mm
 from ..ops import ntt as nttm
-from ..ops import rns
-from ..utils import rng
+from ..ops import polyops, rns
+from ..utils import errors, rng
 
 _prod = lambda xs: reduce(lambda a, b: a * b, xs, 1)
 
@@ -43,6 +46,29 @@ class KSKey:
     """Keyswitch key: (d, k+p, n) NTT + Montgomery per half."""
     k0: torch.Tensor
     k1: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GaloisKeyOne:
+    """The keyswitch key of one Galois element g, with its gather tables.
+    inv_form=True stores the key inverse-permuted (k' = sigma_g^-1(k)), so
+    hoisted rotations MAC the unpermuted digits and permute only the 2-poly
+    result."""
+    k0: torch.Tensor
+    k1: torch.Tensor
+    perm_coeff_src: torch.Tensor
+    perm_coeff_neg: torch.Tensor
+    perm_ntt: torch.Tensor
+    galois_elt: int
+    inv_form: bool = False
+
+
+class GaloisKey:
+    """Bundle of per-element Galois keys: `keys` maps a Galois element (int)
+    or "conj" to its GaloisKeyOne."""
+
+    def __init__(self, keys: dict):
+        self.keys = keys
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -120,3 +146,60 @@ def keygen_relin(ring: RingView, key, sk: SecretKey, groups=None) -> KSKey:
     b = ring.base_qp
     s2_mont = mm.mont_mul(sk.s_ntt_mont_qp, sk.s_ntt_mont_qp, b.col(), b.col("rinv"))
     return ks_keygen(ring, key, sk, s2_mont, groups=groups)
+
+
+def keygen_switch(ring: RingView, key, sk_old: SecretKey, sk_new: SecretKey,
+                  groups=None) -> KSKey:
+    """Key switching from sk_old to sk_new."""
+    return ks_keygen(ring, key, sk_new, sk_old.s_ntt_mont_qp, groups=groups)
+
+
+def _galois_target(ring: RingView, sk: SecretKey, src, neg):
+    """sigma(s) over QP, NTT domain, Montgomery form."""
+    b = ring.base_qp
+    s_g = polyops.apply_galois_coeff(rng.signed_to_rns(sk.s_coeff, ring.qp_primes),
+                                     src, neg, b.col())
+    return mm.to_mont(nttm.ntt_fwd(s_g, ring.ntt_qp), b.col(), b.col("r1"))
+
+
+def keygen_galois_one(ring: RingView, key, sk: SecretKey, g: int, groups=None,
+                      inv_form: bool = False) -> GaloisKeyOne:
+    n, dev = ring.n, ring.device
+    src, neg = polyops.galois_perm_coeff(g, n, dev)
+    perm_ntt = polyops.galois_perm_ntt(g, n, dev)
+    if inv_form:
+        # k' = sigma^-1(k) generated directly: k'0 = -a·sigma^-1(s) + e + P·g_j·s
+        src_i, neg_i = polyops.galois_perm_coeff(pow(g, -1, 2 * n), n, dev)
+        under = dataclasses.replace(sk, s_ntt_mont_qp=_galois_target(ring, sk, src_i, neg_i))
+        kk = ks_keygen(ring, key, under, sk.s_ntt_mont_qp, groups=groups)
+    else:
+        kk = ks_keygen(ring, key, sk, _galois_target(ring, sk, src, neg), groups=groups)
+    return GaloisKeyOne(kk.k0, kk.k1, src, neg, perm_ntt, g, inv_form)
+
+
+def keygen_galois(ring: RingView, key, sk: SecretKey, steps=None, max_shift: int = 8,
+                  include_conj: bool = True, groups=None, elts=None,
+                  a_seed: Optional[int] = None, store_a: bool = True,
+                  inv_form: bool = False) -> GaloisKey:
+    """Default: the power-of-two chain ±2^0..±2^(max_shift-1); `steps` gives
+    a custom rotation list, `elts` raw Galois elements.  Draw order as in the
+    reference: one sub-key per listed element (a repeated element draws
+    nothing), the conjugation key last."""
+    if a_seed is not None or not store_a:
+        raise errors.ParameterError(
+            "seed-expanded Galois keys (a_seed, store_a=False) regenerate their "
+            "uniform half with JAX Threefry, which the port does not have")
+    n = ring.n
+    if steps is None and elts is None:
+        steps = [s for j in range(max_shift) for s in (1 << j, -(1 << j))]
+    gl = [polyops.steps_to_galois_elt(s, n) for s in (steps or [])]
+    gl += [int(g) for g in (elts or [])]
+    subkeys = rng.split(key, len(gl) + 1)
+    keys = {}
+    for sub, g in zip(subkeys[:-1], gl):
+        if g not in keys:
+            keys[g] = keygen_galois_one(ring, sub, sk, g, groups=groups, inv_form=inv_form)
+    if include_conj:
+        keys[polyops.GALOIS_CONJ] = keygen_galois_one(ring, subkeys[-1], sk, 2 * n - 1,
+                                                      groups=groups, inv_form=inv_form)
+    return GaloisKey(keys)

@@ -102,7 +102,7 @@ def _omega_digit_tables(ntt: nttm.NttTables, N: int) -> np.ndarray:
     return out.astype(np.uint32)
 
 
-def make_context(lwe_n: int = LWE_N, device="cpu") -> TfheContext:
+def make_context(lwe_n: int = LWE_N, device="cuda") -> TfheContext:
     """STD128 TFHE context (reference host/tfhe/context.cu:36-57) on `device`.
 
     lwe_n < 512 is a TEST-ONLY knob: it shortens the CMux chain while
@@ -172,7 +172,7 @@ class NLwe:
     variance: float = 0.0
 
 
-def keygen_secret(key, lwe_n: int = LWE_N, device="cpu") -> SecretKey:
+def keygen_secret(key, lwe_n: int = LWE_N, device="cuda") -> SecretKey:
     k1, k2 = rng.split(key)
     lwe = rng.randint(k1, (lwe_n,), 0, 2, device)
     rlwe = rng.randint(k2, (TRLWE_N,), 0, 2, device)

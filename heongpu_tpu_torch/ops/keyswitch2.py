@@ -1,10 +1,14 @@
-"""Method-II (hybrid) keyswitching (port of heongpu_tpu/ops/keyswitch2.py,
-the staged path).
+"""Method-II (hybrid) keyswitching (port of heongpu_tpu/ops/keyswitch2.py).
 
 The k Q-primes split into d̃ = ceil(k/alpha) consecutive groups; each digit
 is the exact value [c]_{D_j} carried into the full Q·P basis by FastBconv,
 transformed, MAC'd against the key halves, transformed back, and divided by
 P = Π special primes one prime at a time.
+
+A 2-D poly with at most 16 digits (the reference's condition for its fused
+route) goes through the fused core (ops/keyswitch_fused.py: K5 on the card,
+its plain composition on the CPU); batched input takes the staged path
+(K1 and K2 on the card).  Both routes are exact and return the same residues.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from . import keyswitch_fused
 from . import ntt as nttm
 from . import rns
 
@@ -29,7 +34,7 @@ class KS2Level:
 
 
 def build_ks2_level(q_primes: Sequence[int], p_primes: Sequence[int],
-                    ka: int, alpha: int, device="cpu") -> KS2Level:
+                    ka: int, alpha: int, device) -> KS2Level:
     """Tables for the level with active primes q_primes[:ka]."""
     active = [int(q) for q in q_primes[:ka]]
     specials = [int(q) for q in p_primes]
@@ -51,8 +56,12 @@ def keyswitch2(poly_q, k0, k1, ks2: KS2Level, ntt_qp_level: nttm.NttTables,
                ntt_q_level: nttm.NttTables):
     """Method-II keyswitch of one poly over the level basis.
 
-    poly_q: (ka, n); k0/k1: (d̃, ka+alpha, n) NTT + Montgomery (already sliced
-    to the level).  Returns (d0, d1) over the active Q primes."""
+    poly_q: (ka, n) or batched (..., ka, n); k0/k1: (d̃, ka+alpha, n) NTT +
+    Montgomery (already sliced to the level).  Returns (d0, d1) over the
+    active Q primes."""
+    if poly_q.ndim == 2 and len(ks2.groups) <= 16:
+        return keyswitch_fused.keyswitch2_fused(poly_q, k0, k1, ks2, ntt_qp_level,
+                                                base_qp_level, in_ntt, out_ntt, ntt_q_level)
     if in_ntt:
         poly_q = nttm.ntt_inv(poly_q, ntt_q_level)
     digits = torch.stack([conv(poly_q[..., g[0]: g[-1] + 1, :])

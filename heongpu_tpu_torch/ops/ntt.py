@@ -188,7 +188,7 @@ def _pack(stages, size: int, p: int):
     return row, shoup_np(row, p)
 
 
-def build_ntt_tables(primes, n: int, psis=None, device="cpu") -> NttTables:
+def build_ntt_tables(primes, n: int, device, psis=None) -> NttTables:
     """Host-side table construction (numpy / python ints), copied from the
     reference's builder; the tensors are placed on `device`."""
     logn = n.bit_length() - 1

@@ -33,7 +33,7 @@ class Base:
     rinv: torch.Tensor
 
     @staticmethod
-    def build(primes: Sequence[int], device="cpu") -> "Base":
+    def build(primes: Sequence[int], device) -> "Base":
         t = lambda f: mm.u32_to_i32([f(int(q)) for q in primes]).to(device)
         return Base(p=t(int), pinv=t(mm.mont_pinv), mu=t(mm.barrett_mu),
                     r1=t(mm.mont_r1), rinv=t(mm.mont_rinv))
@@ -131,7 +131,7 @@ class BaseConv:
 
     @staticmethod
     def build(in_primes: Sequence[int], out_primes: Sequence[int],
-              device="cpu") -> "BaseConv":
+              device) -> "BaseConv":
         q = reduce(lambda a, b: a * b, in_primes, 1)
         qh_inv = [pow(q // qi, -1, qi) for qi in in_primes]
         mat = np.empty((len(in_primes), len(out_primes)), np.uint32)
@@ -170,7 +170,7 @@ class DivRoundLastq:
     p_last: int                # P
 
     @staticmethod
-    def build(q_primes: Sequence[int], p_last: int, device="cpu") -> "DivRoundLastq":
+    def build(q_primes: Sequence[int], p_last: int, device) -> "DivRoundLastq":
         half = p_last // 2
         pin = [pow(p_last, -1, qj) for qj in q_primes]
         return DivRoundLastq(

@@ -29,8 +29,9 @@ ERROR_STD_DEV = 3.2  # sigma of the centered discrete gaussian
 GAUSS_TAIL = 6       # truncate at 6 sigma
 
 
-def new_generator(seed: int, device="cpu") -> torch.Generator:
-    """A seeded torch.Generator on `device`."""
+def new_generator(seed: int, device="cuda") -> torch.Generator:
+    """A seeded torch.Generator on `device` (the card unless the caller asks
+    for the CPU)."""
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     return g
@@ -62,7 +63,7 @@ def _gen_device(key, device):
     return key.device
 
 
-def bits32(key, shape, device="cpu") -> torch.Tensor:
+def bits32(key, shape, device) -> torch.Tensor:
     """Raw uniform 32-bit words as int64 values in [0, 2^32)."""
     if is_drbg(key):
         w = key.bits32(_numel(shape)).astype(np.int64).reshape(shape)
@@ -71,7 +72,7 @@ def bits32(key, shape, device="cpu") -> torch.Tensor:
                          device=_gen_device(key, device), dtype=mm.I64)
 
 
-def randint(key, shape, lo: int, hi: int, device="cpu") -> torch.Tensor:
+def randint(key, shape, lo: int, hi: int, device) -> torch.Tensor:
     """Uniform integers in [lo, hi) as int32."""
     if is_drbg(key):
         u = key.bits64(_numel(shape))
@@ -81,7 +82,7 @@ def randint(key, shape, lo: int, hi: int, device="cpu") -> torch.Tensor:
                          device=_gen_device(key, device), dtype=mm.I32)
 
 
-def normal(key, shape, device="cpu") -> torch.Tensor:
+def normal(key, shape, device) -> torch.Tensor:
     """Standard normal draws as float32."""
     if is_drbg(key):
         n = _numel(shape)
@@ -94,7 +95,7 @@ def normal(key, shape, device="cpu") -> torch.Tensor:
                        device=_gen_device(key, device), dtype=torch.float32)
 
 
-def permutation(key, n: int, device="cpu") -> torch.Tensor:
+def permutation(key, n: int, device) -> torch.Tensor:
     if is_drbg(key):
         return torch.from_numpy(np.argsort(key.bits64(n)).astype(np.int64)).to(device)
     return torch.randperm(n, generator=key, device=_gen_device(key, device))
@@ -105,7 +106,7 @@ def _primes_col(primes, ndim: int, device):
                         device=device).reshape((-1,) + (1,) * ndim)
 
 
-def uniform_rns(key, primes, shape, device="cpu") -> torch.Tensor:
+def uniform_rns(key, primes, shape, device) -> torch.Tensor:
     """Uniform in [0, p) independently per limb, from 64 random bits per
     element (bias < 2^-34); output (L,) + shape."""
     full = (len(primes),) + tuple(shape)
@@ -121,7 +122,7 @@ def signed_to_rns(e, primes) -> torch.Tensor:
                            _primes_col(primes, e.ndim, e.device)).to(mm.I32)
 
 
-def gaussian_rns(key, primes, shape, device="cpu", sigma: float = ERROR_STD_DEV,
+def gaussian_rns(key, primes, shape, device, sigma: float = ERROR_STD_DEV,
                  noise_scale: int = 1) -> torch.Tensor:
     """Centered discrete gaussian (sigma=3.2, cut at 6 sigma), the same noise
     on every limb.  Scale and rounding in float32 as the reference does."""
@@ -134,12 +135,12 @@ def gaussian_rns(key, primes, shape, device="cpu", sigma: float = ERROR_STD_DEV,
     return signed_to_rns(e, primes)
 
 
-def ternary_rns(key, primes, shape, device="cpu") -> torch.Tensor:
+def ternary_rns(key, primes, shape, device) -> torch.Tensor:
     """Uniform ternary {-1, 0, 1}, lifted to every limb."""
     return signed_to_rns(randint(key, tuple(shape), 0, 3, device) - 1, primes)
 
 
-def ternary_hw(key, n: int, hamming_weight: int, device="cpu") -> torch.Tensor:
+def ternary_hw(key, n: int, hamming_weight: int, device) -> torch.Tensor:
     """Ternary secret with fixed hamming weight, int32 in {-1, 0, 1}."""
     k_pos, k_sign = split(key)
     perm = permutation(k_pos, n, device)

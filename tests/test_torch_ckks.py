@@ -47,14 +47,14 @@ def chain():
     d = jckks.decrypt(jctx, sk, s)
     ref = dict(ctx=jctx, sk=sk, pk=pk, rk=rk, ct1=ct1, ct2=ct2, mul=m, relin=r,
                rescale=s, dec=d, decoded=jckks.decode_host(jctx, d))
-    tctx = tckks.make_context(N, Q_BITS, ks_type="II", alpha=ALPHA)
+    tctx = tckks.make_context(N, Q_BITS, ks_type="II", alpha=ALPHA, device="cpu")
     port = dict(
         ctx=tctx,
         sk=interop.secret_key_from_numpy(np.asarray(sk.s_coeff), np.asarray(sk.s_ntt_mont_qp),
-                                         sk.hamming_weight),
-        rk=interop.ks_key_from_numpy(np.asarray(rk.k0), np.asarray(rk.k1)),
-        ct1=interop.ciphertext_from_numpy(np.asarray(ct1.c), 2, 0, ct1.scale),
-        ct2=interop.ciphertext_from_numpy(np.asarray(ct2.c), 2, 0, ct2.scale))
+                                         sk.hamming_weight, device="cpu"),
+        rk=interop.ks_key_from_numpy(np.asarray(rk.k0), np.asarray(rk.k1), device="cpu"),
+        ct1=interop.ciphertext_from_numpy(np.asarray(ct1.c), 2, 0, ct1.scale, device="cpu"),
+        ct2=interop.ciphertext_from_numpy(np.asarray(ct2.c), 2, 0, ct2.scale, device="cpu"))
     return ref, port
 
 
@@ -125,11 +125,12 @@ def test_linear_ops_match_reference(chain):
 
 def test_interop_carries_keys_and_plaintexts(chain):
     ref, port = chain
-    pk = interop.public_key_from_numpy(np.asarray(ref["pk"].pk0), np.asarray(ref["pk"].pk1))
+    pk = interop.public_key_from_numpy(np.asarray(ref["pk"].pk0), np.asarray(ref["pk"].pk1),
+                                       device="cpu")
     np.testing.assert_array_equal(interop.to_numpy(pk.pk0), np.asarray(ref["pk"].pk0))
     np.testing.assert_array_equal(interop.to_numpy(pk.pk1), np.asarray(ref["pk"].pk1))
     d = ref["dec"]
-    pt = interop.plaintext_from_numpy(np.asarray(d.m), d.level, d.scale)
+    pt = interop.plaintext_from_numpy(np.asarray(d.m), d.level, d.scale, device="cpu")
     np.testing.assert_array_equal(tckks.decode_host(port["ctx"], pt), ref["decoded"])
     sk = port["sk"]
     np.testing.assert_array_equal(sk.s_coeff.numpy(), np.asarray(ref["sk"].s_coeff))
@@ -137,8 +138,8 @@ def test_interop_carries_keys_and_plaintexts(chain):
 
 
 def test_port_own_run_decodes():
-    ctx = tckks.make_context(N, Q_BITS, ks_type="II", alpha=ALPHA)
-    g = trng.new_generator(7)
+    ctx = tckks.make_context(N, Q_BITS, ks_type="II", alpha=ALPHA, device="cpu")
+    g = trng.new_generator(7, "cpu")
     sk = tckks.keygen_secret(ctx, g)
     pk = tckks.keygen_public(ctx, g, sk)
     rk = tckks.keygen_relin(ctx, g, sk)
@@ -159,15 +160,31 @@ def test_port_rejects_misuse(chain):
     with pytest.raises(tckks.errors.LevelMismatchError):
         tckks.add(ctx, tckks.mod_drop(ctx, port["ct1"]), port["ct2"])
     with pytest.raises(tckks.errors.ParameterError):
-        tckks.make_context(N, Q_BITS, ks_type="I")
+        tckks.make_context(N, Q_BITS, ks_type="I", device="cpu")
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, heongpu_tpu_torch.models.ckks, heongpu_tpu_torch.interop, "
-            "heongpu_tpu_torch.kernels; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'heongpu_tpu.'))"
-            " or m == 'heongpu_tpu']; print(bad); sys.exit(1 if bad else 0)")
+    """Every module of heongpu_tpu_torch, imported in a fresh interpreter,
+    loads neither jax nor the JAX package."""
+    code = ("import importlib, pkgutil, sys, heongpu_tpu_torch as pkg; "
+            "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'heongpu_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'heongpu_tpu') "
+            "or m.startswith(('jax.', 'heongpu_tpu.'))]; "
+            "print(len(mods), bad); sys.exit(1 if bad or len(mods) < 20 else 0)")
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py's import statements name neither jax nor the JAX
+    package (read with ast, not run)."""
+    import ast
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "heongpu_tpu_torch.models" in names
+    bad = [m for m in names if m.split(".")[0] in ("jax", "heongpu_tpu")]
+    assert not bad, bad

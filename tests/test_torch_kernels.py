@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from heongpu_tpu_torch.ops import keyswitch2 as tks2  # noqa: E402
+from heongpu_tpu_torch.ops import keyswitch_fused as tksf  # noqa: E402
 from heongpu_tpu_torch.ops import modmath as tm  # noqa: E402
 from heongpu_tpu_torch.ops import ntt as tntt  # noqa: E402
 from heongpu_tpu_torch.ops import rns as trns  # noqa: E402
@@ -114,15 +116,87 @@ def test_slice_on_card_matches_cpu(dev):
     c2 = ckks.encrypt(ctx, pk, ckks.encode(ctx, z[::-1].copy()), g)
     kernels.reset_launches()
     out = ckks.rescale(ctx, ckks.relinearize(ctx, ckks.multiply(ctx, c1, c2), rk))
-    ckks_kernels = ("ntt_fwd", "ntt_inv", "mac_keys", "base_conv")
+    ckks_kernels = ("ntt_fwd", "ntt_inv", "keyswitch2_fused")
     assert all(kernels.launches[k] for k in ckks_kernels), kernels.launches
     assert np.abs(ckks.decode(ctx, ckks.decrypt(ctx, sk, out)) - z * z[::-1]).max() < 1e-3
 
-    cctx = ckks.make_context(n, q_bits, alpha=2)
+    cctx = ckks.make_context(n, q_bits, alpha=2, device="cpu")
     cpu = lambda c: ckks.Ciphertext(c.c.cpu(), c.size, c.level, c.scale)
     want = ckks.rescale(cctx, ckks.relinearize(
         cctx, ckks.multiply(cctx, cpu(c1), cpu(c2)), ckks.KSKey(rk.k0.cpu(), rk.k1.cpu())))
     _equal(out.c.cpu(), want.c)
+
+
+@pytest.mark.parametrize("ka,alpha,p_count", [(4, 2, 2), (5, 2, 3), (12, 4, 4), (11, 4, 4)])
+@pytest.mark.parametrize("n", [256, 4096, 65536])
+def test_keyswitch_fused_kernel_matches_plain(dev, n, ka, alpha, p_count):
+    """K5 against keyswitch2_fused_core_plain on the same inputs, on the card."""
+    from heongpu_tpu_torch import kernels
+    primes = tnt.generate_ntt_primes(29, ka + p_count, n)
+    lvl = tks2.build_ks2_level(primes[:ka], primes[ka:], ka, alpha, dev)
+    tb = tntt.build_ntt_tables(primes, n, device=dev)
+    rng = np.random.default_rng(n + ka)
+    d = len(lvl.groups)
+    z = torch.cat([_residues(rng, primes[g[0]: g[-1] + 1], (len(g), n), dev) for g in lvl.groups])
+    k0, k1 = (_residues(rng, primes, (d, ka + p_count, n), dev) for _ in range(2))
+    mat = tksf.build_fused_mat(lvl, ka + p_count)
+    before = kernels.launches["keyswitch2_fused"]
+    got = tksf.keyswitch2_fused_core(z, mat, k0, k1, tb, lvl.groups)
+    assert kernels.launches["keyswitch2_fused"] == before + 1
+    _equal(got, tksf.keyswitch2_fused_core_plain(z, mat, k0, k1, tb, lvl.groups))
+
+
+def test_keyswitch_fused_wrapper_rejects_bad_input(dev):
+    n, ka, alpha = 256, 4, 2
+    primes = tnt.generate_ntt_primes(29, ka + alpha, n)
+    lvl = tks2.build_ks2_level(primes[:ka], primes[ka:], ka, alpha, dev)
+    tb = tntt.build_ntt_tables(primes, n, device=dev)
+    rng = np.random.default_rng(0)
+    z = _residues(rng, primes[:ka], (ka, n), dev)
+    k0 = _residues(rng, primes, (2, ka + alpha, n), dev)
+    mat = tksf.build_fused_mat(lvl, ka + alpha)
+    for args in ((z.cpu(), mat, k0, k0), (z, mat, k0.transpose(1, 2).contiguous().transpose(1, 2), k0),
+                 (z, mat, k0[:1].contiguous(), k0[:1].contiguous()), (z.to(torch.int64), mat, k0, k0)):
+        with pytest.raises(ValueError):
+            tksf.keyswitch2_fused_cuda(*args, tb, lvl.groups)
+
+
+def test_rotations_on_card_match_cpu(dev):
+    """rotate (K5) and hoist + rotate_hoisted (K1, K2) on the card equal the
+    CPU plain path on copies of the same keys and ciphertext, and decode."""
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks
+    from heongpu_tpu_torch.models import ringkit
+    from heongpu_tpu_torch.ops import polyops
+    from heongpu_tpu_torch.utils import rng
+
+    n, q_bits = 4096, [29] * 6
+    z = np.random.default_rng(3).uniform(0, 1, n // 2)
+    ctx = ckks.make_context(n, q_bits, alpha=2, device=dev)
+    g = rng.new_generator(5, dev)
+    sk = ckks.keygen_secret(ctx, g)
+    pk = ckks.keygen_public(ctx, g, sk)
+    gk = ckks.keygen_galois(ctx, g, sk, steps=[1, 2])
+    ct = ckks.encrypt(ctx, pk, ckks.encode(ctx, z), g)
+    kernels.reset_launches()
+    rot = ckks.rotate(ctx, ct, gk, 3)
+    d = ckks.hoist(ctx, ct)
+    one = gk.keys[polyops.steps_to_galois_elt(1, n)]
+    hro = ckks.rotate_hoisted(ctx, ct, d, one)
+    assert all(kernels.launches[k] for k in ("keyswitch2_fused", "mac_keys", "base_conv")), \
+        kernels.launches
+    for got, step in ((rot, 3), (hro, 1)):
+        err = np.abs(ckks.decode(ctx, ckks.decrypt(ctx, sk, got)) - np.roll(z, -step)).max()
+        assert err < 1e-3, (step, err)
+
+    cctx = ckks.make_context(n, q_bits, alpha=2, device="cpu")
+    cpu = lambda c: ckks.Ciphertext(c.c.cpu(), c.size, c.level, c.scale)
+    cone = ringkit.GaloisKeyOne(*(t.cpu() for t in (one.k0, one.k1, one.perm_coeff_src,
+                                                    one.perm_coeff_neg, one.perm_ntt)),
+                                one.galois_elt, one.inv_form)
+    _equal(ckks.apply_galois(cctx, cpu(ct), cone).c, ckks.apply_galois(ctx, ct, one).c.cpu())
+    want = ckks.rotate_hoisted(cctx, cpu(ct), ckks.hoist(cctx, cpu(ct)), cone)
+    _equal(hro.c.cpu(), want.c)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ def _np(t):
 def _both(n, limbs, bits=29):
     primes = tnt.generate_ntt_primes(bits, limbs, n)
     assert primes == jnt.generate_ntt_primes(bits, limbs, n)
-    return primes, jntt.build_ntt_tables(primes, n), tntt.build_ntt_tables(primes, n)
+    return primes, jntt.build_ntt_tables(primes, n), tntt.build_ntt_tables(primes, n, "cpu")
 
 
 def _residues(primes, n, lead=(), seed=0):
@@ -121,9 +121,9 @@ def test_galois_tables_match(n):
     from heongpu_tpu.ops import polyops as jpoly
     from heongpu_tpu_torch.ops import polyops as tpoly
     for g in (5, 25, 2 * n - 1):
-        for got, want in zip(tpoly.galois_perm_coeff(g, n), jpoly.galois_perm_coeff(g, n)):
+        for got, want in zip(tpoly.galois_perm_coeff(g, n, "cpu"), jpoly.galois_perm_coeff(g, n)):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int32))
-        np.testing.assert_array_equal(tpoly.galois_perm_ntt(g, n).numpy(),
+        np.testing.assert_array_equal(tpoly.galois_perm_ntt(g, n, "cpu").numpy(),
                                       np.asarray(jpoly.galois_perm_ntt(g, n)))
 
 

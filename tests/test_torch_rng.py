@@ -35,17 +35,17 @@ def test_samplers_match_reference():
     jd, td = _pair(b"samplers")
     seq = [
         (lambda k: jrng.uniform_rns(k, PRIMES, (3, 64)),
-         lambda k: trng.uniform_rns(k, PRIMES, (3, 64))),
+         lambda k: trng.uniform_rns(k, PRIMES, (3, 64), "cpu")),
         (lambda k: jrng.gaussian_rns(k, PRIMES, (4096,)),
-         lambda k: trng.gaussian_rns(k, PRIMES, (4096,))),
+         lambda k: trng.gaussian_rns(k, PRIMES, (4096,), "cpu")),
         (lambda k: jrng.gaussian_rns(k, PRIMES, (2, 100), noise_scale=65537),
-         lambda k: trng.gaussian_rns(k, PRIMES, (2, 100), noise_scale=65537)),
+         lambda k: trng.gaussian_rns(k, PRIMES, (2, 100), "cpu", noise_scale=65537)),
         (lambda k: jrng.ternary_rns(k, PRIMES, (512,)),
-         lambda k: trng.ternary_rns(k, PRIMES, (512,))),
-        (lambda k: jrng.ternary_hw(k, 512, 200), lambda k: trng.ternary_hw(k, 512, 200)),
-        (lambda k: jrng.randint(k, (300,), 2, 9), lambda k: trng.randint(k, (300,), 2, 9)),
-        (lambda k: jrng.permutation(k, 128), lambda k: trng.permutation(k, 128)),
-        (lambda k: jrng.normal(k, (1000,)), lambda k: trng.normal(k, (1000,))),
+         lambda k: trng.ternary_rns(k, PRIMES, (512,), "cpu")),
+        (lambda k: jrng.ternary_hw(k, 512, 200), lambda k: trng.ternary_hw(k, 512, 200, "cpu")),
+        (lambda k: jrng.randint(k, (300,), 2, 9), lambda k: trng.randint(k, (300,), 2, 9, "cpu")),
+        (lambda k: jrng.permutation(k, 128), lambda k: trng.permutation(k, 128, "cpu")),
+        (lambda k: jrng.normal(k, (1000,)), lambda k: trng.normal(k, (1000,), "cpu")),
     ]
     for i, (jf, tf) in enumerate(seq):
         want, got = np.asarray(jf(jd)), _np(tf(td))
@@ -58,14 +58,14 @@ def test_samplers_match_reference():
 
 
 def test_generator_source_shapes_and_ranges():
-    g = trng.new_generator(5)
-    u = trng.uniform_rns(g, PRIMES, (2, 256))
+    g = trng.new_generator(5, "cpu")
+    u = trng.uniform_rns(g, PRIMES, (2, 256), "cpu")
     assert u.shape == (3, 2, 256) and u.dtype == torch.int32
     assert all(int(u[i].max()) < p and int(u[i].min()) >= 0 for i, p in enumerate(PRIMES))
-    e = trng.gaussian_rns(g, PRIMES, (4096,)).to(torch.int64)
+    e = trng.gaussian_rns(g, PRIMES, (4096,), "cpu").to(torch.int64)
     centered = torch.where(e[0] > PRIMES[0] // 2, e[0] - PRIMES[0], e[0])
     assert int(centered.abs().max()) <= 19 and 2.5 < float(centered.double().std()) < 4.0
-    s = trng.ternary_hw(g, 1024, 300)
+    s = trng.ternary_hw(g, 1024, 300, "cpu")
     assert int((s != 0).sum()) == 300 and set(s.unique().tolist()) <= {-1, 0, 1}
 
 
@@ -74,7 +74,7 @@ def keysets():
     """Keys and one ciphertext at N=256, [29]*4, Method II alpha=2, from one
     DRBG seed in each package (the reference's DRBG path runs eagerly)."""
     jctx = jckks.make_context(256, [29] * 4, ks_type="II", alpha=2)
-    tctx = tckks.make_context(256, [29] * 4, ks_type="II", alpha=2)
+    tctx = tckks.make_context(256, [29] * 4, ks_type="II", alpha=2, device="cpu")
     out = {}
     for name, m, ctx, d in (("jax", jckks, jctx, jrng.new_drbg(SEED, b"keys")),
                             ("torch", tckks, tctx, trng.new_drbg(SEED, b"keys"))):

@@ -48,7 +48,7 @@ PRIMES = tnt.generate_ntt_primes(29, 6, N) + tnt.generate_ntt_primes(30, 2, N)
 
 
 def test_base_fields_match():
-    jb, tb = jrns.Base.build(PRIMES), trns.Base.build(PRIMES)
+    jb, tb = jrns.Base.build(PRIMES), trns.Base.build(PRIMES, "cpu")
     for f in ("p", "pinv", "mu", "r1"):
         np.testing.assert_array_equal(_np(getattr(tb, f)), np.asarray(getattr(jb, f)), f)
 
@@ -57,7 +57,7 @@ def test_base_fields_match():
 def test_base_conv_matches(k_in, k_out):
     rng = np.random.default_rng(k_in * 10 + k_out)
     ins, outs = PRIMES[:k_in], PRIMES[-k_out:]
-    jc, tc = jrns.BaseConv.build(ins, outs), trns.BaseConv.build(ins, outs)
+    jc, tc = jrns.BaseConv.build(ins, outs), trns.BaseConv.build(ins, outs, "cpu")
     np.testing.assert_array_equal(_np(tc.mat_mont), np.asarray(jc.mat_mont))
     np.testing.assert_array_equal(_np(tc.qhat_inv), np.asarray(jc.qhat_inv))
     x = _residues(rng, ins, (2, k_in, N))
@@ -73,7 +73,7 @@ def test_base_conv_matches(k_in, k_out):
 def test_lazy_mac_mont_matches(d):
     """d > 16 crosses the reference's 16-product fold boundary."""
     rng = np.random.default_rng(d)
-    base_j, base_t = jrns.Base.build(PRIMES), trns.Base.build(PRIMES)
+    base_j, base_t = jrns.Base.build(PRIMES), trns.Base.build(PRIMES, "cpu")
     dd = _residues(rng, PRIMES, (d, len(PRIMES), N))
     kk = _residues(rng, PRIMES, (d, len(PRIMES), N))
     want = jrns.lazy_mac_mont(jnp.asarray(dd), jnp.asarray(kk), base_j)
@@ -88,7 +88,7 @@ def test_lazy_mac_mont_matches(d):
 def test_div_round_lastq_matches():
     rng = np.random.default_rng(3)
     q, last = PRIMES[:5], PRIMES[5]
-    jd, td = jrns.DivRoundLastq.build(q, last), trns.DivRoundLastq.build(q, last)
+    jd, td = jrns.DivRoundLastq.build(q, last), trns.DivRoundLastq.build(q, last, "cpu")
     x = _residues(rng, q + [last], (2, 6, N))
     x[0, :, :3] = 0
     x[0, -1, 3] = last - 1
@@ -99,7 +99,7 @@ def _ks_setup(ka, alpha, seed=7):
     primes = tnt.generate_ntt_primes(29, ka + alpha, N)
     q_primes, p_primes = primes[:ka], primes[ka:]
     jl = jks2.build_ks2_level(q_primes, p_primes, ka, alpha)
-    tl = tks2.build_ks2_level(q_primes, p_primes, ka, alpha)
+    tl = tks2.build_ks2_level(q_primes, p_primes, ka, alpha, "cpu")
     assert jl.groups == tl.groups
     rng = np.random.default_rng(seed)
     d_t = len(tl.groups)
@@ -108,8 +108,8 @@ def _ks_setup(ka, alpha, seed=7):
     k1 = _residues(rng, primes, (d_t, ka + alpha, N))
     j = (jl, jntt.build_ntt_tables(primes, N), jrns.Base.build(primes),
          jntt.build_ntt_tables(q_primes, N))
-    t = (tl, tntt.build_ntt_tables(primes, N), trns.Base.build(primes),
-         tntt.build_ntt_tables(q_primes, N))
+    t = (tl, tntt.build_ntt_tables(primes, N, "cpu"), trns.Base.build(primes, "cpu"),
+         tntt.build_ntt_tables(q_primes, N, "cpu"))
     return poly, k0, k1, j, t
 
 

@@ -42,7 +42,8 @@ def _np(t):
 
 
 def _ct(c):
-    return interop.tfhe_ciphertext_from_numpy(np.asarray(c.a), np.asarray(c.b), c.variance)
+    return interop.tfhe_ciphertext_from_numpy(np.asarray(c.a), np.asarray(c.b), c.variance,
+                                              device="cpu")
 
 
 def _same(got, want):
@@ -66,12 +67,13 @@ def ref():
              c1=jtfhe.encrypt(jctx, sk, B1, jrng.new_key(6)),
              c2=jtfhe.encrypt(jctx, sk, B2, jrng.new_key(7)),
              sel=jtfhe.encrypt(jctx, sk, SEL, jrng.new_key(8)))
-    t = dict(ctx=tfhe.make_context(lwe_n=LWE_N),
-             sk=interop.tfhe_secret_key_from_numpy(np.asarray(sk.lwe), np.asarray(sk.rlwe)),
+    t = dict(ctx=tfhe.make_context(lwe_n=LWE_N, device="cpu"),
+             sk=interop.tfhe_secret_key_from_numpy(np.asarray(sk.lwe), np.asarray(sk.rlwe),
+                                                   device="cpu"),
              bk=interop.tfhe_boot_key_from_numpy(np.asarray(bk.bk), np.asarray(bk.ksk_a),
-                                                 np.asarray(bk.ksk_b)),
+                                                 np.asarray(bk.ksk_b), device="cpu"),
              bk2=interop.tfhe_boot_key2_from_numpy(np.asarray(bk2.bk2), np.asarray(bk2.ksk_a),
-                                                   np.asarray(bk2.ksk_b)))
+                                                   np.asarray(bk2.ksk_b), device="cpu"))
     for name in ("ct8", "ct3", "c1", "c2", "sel"):
         t[name] = _ct(j[name])
     return j, t
@@ -102,7 +104,7 @@ def test_encrypt_decrypt(ref):
         np.testing.assert_array_equal(tfhe.decrypt(t["ctx"], t["sk"], t[name]), bits)
         np.testing.assert_array_equal(tfhe.decrypt(t["ctx"], t["sk"], t[name]),
                                       np.asarray(jtfhe.decrypt(j["ctx"], j["sk"], j[name])))
-    own = tfhe.encrypt(t["ctx"], t["sk"], BITS8, trng.new_generator(5))
+    own = tfhe.encrypt(t["ctx"], t["sk"], BITS8, trng.new_generator(5, "cpu"))
     assert own.a.dtype == torch.int32 and own.variance == tfhe.SIGMA_KS ** 2
     np.testing.assert_array_equal(tfhe.decrypt(t["ctx"], t["sk"], own), BITS8)
 
@@ -112,7 +114,7 @@ def test_drbg_keys_and_encrypt_match_reference(ref):
     seed = bytes(range(32))
     jd, td = jrng.new_drbg(seed), trng.new_drbg(seed)
     jsk = jtfhe.keygen_secret(jd, lwe_n=LWE_N)
-    tsk = tfhe.keygen_secret(td, lwe_n=LWE_N)
+    tsk = tfhe.keygen_secret(td, lwe_n=LWE_N, device="cpu")
     pairs = [(tsk.lwe, jsk.lwe), (tsk.rlwe, jsk.rlwe)]
     jbk, tbk = jtfhe.keygen_boot(j["ctx"], jd, jsk), tfhe.keygen_boot(t["ctx"], td, tsk)
     pairs += [(tbk.bk, jbk.bk), (tbk.ksk_a, jbk.ksk_a), (tbk.ksk_b, jbk.ksk_b)]
@@ -296,7 +298,7 @@ def test_chain_wrappers_reject_bad_input(ref):
     with pytest.raises(ValueError):
         tk.blind_rotate_cuda(acc, a_t, bk, ctx)
     with pytest.raises(ValueError):
-        tfhe.make_context(lwe_n=12)
+        tfhe.make_context(lwe_n=12, device="cpu")
 
 
 def test_port_imports_no_jax():

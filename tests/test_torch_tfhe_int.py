@@ -33,7 +33,7 @@ def _same(got, want):
 
 def _hu(h):
     return interop.huint_from_numpy(np.asarray(h.bits.a), np.asarray(h.bits.b),
-                                    h.bits.variance, h.width, h.count)
+                                    h.bits.variance, h.width, h.count, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -43,10 +43,11 @@ def ref():
     bk = jtfhe.keygen_boot(jctx, jrng.new_key(22), sk)
     hx = jint.encrypt_huint(jctx, sk, XS, W, jrng.new_key(23))
     hy = jint.encrypt_huint(jctx, sk, YS, W, jrng.new_key(24))
-    t = dict(ctx=tfhe.make_context(lwe_n=LWE_N),
-             sk=interop.tfhe_secret_key_from_numpy(np.asarray(sk.lwe), np.asarray(sk.rlwe)),
+    t = dict(ctx=tfhe.make_context(lwe_n=LWE_N, device="cpu"),
+             sk=interop.tfhe_secret_key_from_numpy(np.asarray(sk.lwe), np.asarray(sk.rlwe),
+                                                   device="cpu"),
              bk=interop.tfhe_boot_key_from_numpy(np.asarray(bk.bk), np.asarray(bk.ksk_a),
-                                                 np.asarray(bk.ksk_b)),
+                                                 np.asarray(bk.ksk_b), device="cpu"),
              hx=_hu(hx), hy=_hu(hy))
     return dict(ctx=jctx, sk=sk, bk=bk, hx=hx, hy=hy), t
 
@@ -54,9 +55,9 @@ def ref():
 @pytest.fixture(scope="module")
 def own():
     """The port's own keys (torch.Generator), both kinds, lwe_n=16."""
-    ctx = tfhe.make_context(lwe_n=LWE_N)
-    g = trng.new_generator(31)
-    sk = tfhe.keygen_secret(g, lwe_n=LWE_N)
+    ctx = tfhe.make_context(lwe_n=LWE_N, device="cpu")
+    g = trng.new_generator(31, "cpu")
+    sk = tfhe.keygen_secret(g, lwe_n=LWE_N, device="cpu")
     return ctx, g, sk, {"bk": tfhe.keygen_boot(ctx, g, sk),
                         "bk2": tfhe.keygen_boot_unrolled(ctx, g, sk)}
 
