@@ -23,7 +23,8 @@ and a BootKey2 (K4, the key-unrolled chain).
 
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc;
+  2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
+     the ptxas line (registers, stack, spills) of K3 and K4;
   3. K1 (NTT) against its plain torch version on the card, bit for bit,
      forward and inverse, N in {2^11, 2^12, 2^15, 2^16};
   4. K2 (keyswitch MAC, base conversion) against the plain version; K5
@@ -58,13 +59,16 @@ Phases (each raises on failure, so the script exits non-zero):
      (copies of the same keys and ciphertext, B=2) must equal the card's;
  10. TFHE timings with CUDA events (NAND at B=8 and B=64 against the plain
      chain on the card, K3/K4 against the plain chains, each output
-     compared, huint8 add and MUX at B=64) and, from torch.profiler, the
+     compared, with their microseconds per step and their per-SM bound,
+     huint8 add and MUX at B=64) and, from torch.profiler, the
      device-idle share and the leading kernels of NAND at B=8 and B=64 and
      of a huint8 add.
 The kernels' max_abs_err is the worst over every comparison above.  Each
 kernel's bound_ms is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and a lower count of its int32
-operations over the card's int32 rate, from this run's timed inputs.
+operations over the card's int32 rate, from this run's timed inputs; K3 and
+K4 also carry per_sm_bound_ms, the operations of one gate's chain over one
+SM's share (1/132) of that rate, since each gate runs on one SM.
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}.
 
@@ -73,6 +77,7 @@ Usage: python3 chip_smoke.py   (one CUDA device; no arguments)
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +116,7 @@ GATES = {"NAND": lambda a, b: ~(a & b), "AND": lambda a, b: a & b,
 # and an SM has 64 INT32 lanes against 128 FP32 lanes).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+SMS = 132           # SMs of an H100 SXM; K3/K4 run one gate on one SM
 # Lower counts of int32 instructions per unit of work, for the bounds.
 BUTTERFLY_OPS = 6   # Shoup butterfly: a*w, umulhi(a, w'), the -q*p multiply-add, add, sub, select
 SHOUP_OPS = 3       # Shoup product by a table constant
@@ -131,6 +137,19 @@ def bound(nbytes_: int, ops: float):
 def transform_ops(rows: int, n: int) -> int:
     """Butterflies and cross-twiddle products of `rows` n-point transforms."""
     return rows * (n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS + n * SHOUP_OPS)
+
+
+def ptxas_summary(log: str, kernel: str) -> dict:
+    """{function: its ptxas line of registers and spills} for the functions
+    whose (mangled) name holds `kernel`, from the `nvcc -Xptxas -v` build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+        if m:
+            name = m.group(1)
+        elif name and kernel in name and ("spill" in line or "registers" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def card_line() -> str:
@@ -434,7 +453,7 @@ def rotation_phase(ctx, cctx, sk, pk, card, errs):
 def tfhe_phases(dev, card, check_ntt, errs):
     """Phases 8-10: the TFHE gate-bootstrapping path at STD128 width.
     Returns (launch counts of its main path, kernel times, kernel bounds,
-    TFHE timings)."""
+    TFHE timings, {kernel: its per-SM bound and time per step})."""
     import torch
     from heongpu_tpu_torch import kernels
     from heongpu_tpu_torch.models import tfhe, tfhe_int
@@ -547,8 +566,12 @@ def tfhe_phases(dev, card, check_ntt, errs):
         tim[f"nand_b{B}_ms"], tim[f"nand_b{B}_plain_ms"] = ms, pms
         print(f"time NAND gate bootstrap B={B}: kernel path {ms:.4f} ms "
               f"({ms * 1e3 / B:.2f} us/gate), plain chain {pms:.4f} ms [{card}]")
-    kt = {}
+    kt, per_step = {}, {}
     for name, (key, plain, unrolled) in chains.items():
+        steps = ctx.n // 2 if unrolled else ctx.n
+        # one gate's transforms on one SM: the least time of a chain that keeps each
+        # gate on one SM, whatever B <= SMS
+        sm_ms = bound(0, steps * transform_ops(12, ctx.N) * SMS)[0]
         for B in (8, TFHE_B):
             acc, a_t = prologue[B]
             e = max_err(tk.blind_rotate_cuda(acc, a_t, key, ctx, unrolled),
@@ -559,9 +582,15 @@ def tfhe_phases(dev, card, check_ntt, errs):
             ms = cuda_ms(lambda: tk.blind_rotate_cuda(acc, a_t, key, ctx, unrolled), reps=10)
             pms = cuda_ms(lambda: plain(acc, a_t, key, ctx), reps=1, warm=0)
             kt[(name, B)] = (ms, pms)
+            us = ms * 1e3 / steps
             tim[f"{name}_b{B}_ms"], tim[f"{name}_b{B}_plain_ms"] = ms, pms
-            print(f"time {name} (B={B}, n={ctx.n}): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"err={e} [{card}]")
+            tim[f"{name}_b{B}_us_per_step"] = us
+            print(f"time {name} (B={B}, n={ctx.n}): kernel {ms:.4f} ms = {us:.3f} us per "
+                  f"{'pair ' if unrolled else ''}step ({steps}), plain {pms:.4f} ms, err={e}; "
+                  f"per-SM bound {sm_ms:.4f} ms = {sm_ms * 1e3 / steps:.3f} us per "
+                  f"{'pair ' if unrolled else ''}step [{card}]")
+        per_step[name] = {"per_sm_bound_ms": sm_ms, "us_per_step": kt[(name, 8)][0] * 1e3 / steps,
+                          "steps": steps}
     for kname, key in (("BootKey", bk), ("BootKey2", bk2)):
         ms = cuda_ms(lambda: tfhe_int.add(ctx, key, hx, hy), reps=3, warm=1)
         mux = cuda_ms(lambda: tfhe.MUX(ctx, key, cs, cx, cy), reps=5, warm=1)
@@ -577,7 +606,8 @@ def tfhe_phases(dev, card, check_ntt, errs):
     # transforms of N=1024 points per gate (INTT of the 4 rows of X^a·acc - acc,
     # forward NTT of the 8 digit rows); the key is read once
     tb = ctx.ntt
-    tabs = (ctx.omega_bits, tb.p, tb.pinv, tb.r1, tb.tw1p, tb.tw1p_sh, tb.tw2p, tb.tw2p_sh,
+    tabs = (ctx.omega_pows, ctx.omega_exps, tb.p, tb.pinv, tb.r1, tb.tw1p, tb.tw1p_sh, tb.tw2p,
+            tb.tw2p_sh,
             tb.itw1p, tb.itw1p_sh, tb.itw2p, tb.itw2p_sh, tb.tw_mat, tb.tw_mat_sh,
             tb.itw_mat, tb.itw_mat_sh)
     acc, a_t = prologue[8]
@@ -586,7 +616,7 @@ def tfhe_phases(dev, card, check_ntt, errs):
         steps = ctx.n // 2 if unrolled else ctx.n
         bounds[name] = bound(nbytes(acc, a_t, key, acc, *tabs),
                              acc.shape[0] * steps * transform_ops(12, ctx.N))
-    return launches, {name: kt[(name, 8)] for name in chains}, bounds, tim
+    return launches, {name: kt[(name, 8)] for name in chains}, bounds, tim, per_step
 
 
 def main() -> int:
@@ -621,6 +651,12 @@ def run(dev) -> int:
     for line in log.splitlines():
         if "registers" in line or "error" in line.lower():
             print("  ptxas:", line.strip())
+    ptxas = {("blind_rotate2" if "Lb1E" in fn else "blind_rotate"): line
+             for fn, line in ptxas_summary(log, "blind_rotate_kernel").items()}
+    for name, line in ptxas.items():
+        print(f"ptxas tfhe.cu {name}: {line}")
+    if log and len(ptxas) != 2:
+        raise AssertionError(f"no ptxas line for both blind-rotation kernels: {ptxas}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
@@ -827,7 +863,8 @@ def run(dev) -> int:
     rot.update(time_rotations())
 
     # -- 8-10. the TFHE path ------------------------------------------------------
-    tfhe_launches, tfhe_times, tfhe_bounds, tfhe_tim = tfhe_phases(dev, card, check_ntt, errs)
+    tfhe_launches, tfhe_times, tfhe_bounds, tfhe_tim, per_step = tfhe_phases(dev, card, check_ntt,
+                                                                             errs)
     # each kernel's launches on the three paths, each counted from 0 just before its path
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] for k in launches}
@@ -855,6 +892,10 @@ def run(dev) -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in sources.items()]
     kernels_rec[-1]["staged_ms"] = staged_ms
+    for k in kernels_rec:
+        k.update(per_step.get(k["name"], {}))
+        if k["name"] in ptxas:
+            k["ptxas"] = ptxas[k["name"]]
     bad = [k["name"] for k in kernels_rec if not k["launches"] or k["max_abs_err"]]
     if bad:
         raise AssertionError(f"kernels not launched on their path or in error: {bad}")

@@ -30,12 +30,14 @@ NVCC_TIMEOUT = 600
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer and the stream as c_void_p, every size as c_int
+_U = ctypes.c_uint
+# C signatures: every pointer and the stream as c_void_p, every size as c_int, every
+# uint32 constant as c_uint
 SIGNATURES = {
     "hf_ntt": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "hf_mac_keys": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hf_base_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "hf_blind_rotate": [_I, _P, _P, _P, _P, _I, _I] + [_P] * 16 + [_I, _P],
+    "hf_blind_rotate": [_I, _P, _P, _P, _P, _I, _I] + [_P] * 17 + [_U, _U, _P],
     "hf_keyswitch2_fused": [_P] * 7 + [_I] * 6 + [_P] * 15 + [_P],
 }
 

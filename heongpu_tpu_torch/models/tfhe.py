@@ -75,6 +75,8 @@ class TfheContext:
     p1_inv_p2: int               # p1^{-1} mod p2
     offset: int                  # gadget decomposition offset
     omega_bits: torch.Tensor     # (6, 4, 2, N) mont NTT-domain X^(c*4^g)
+    omega_pows: torch.Tensor     # (2, 2N) mont psi^j: X^a at pos is psi^(e[pos]*a mod 2N)
+    omega_exps: torch.Tensor     # (N,) e[pos] = 2*eval_order(N)[pos] + 1
 
     @property
     def device(self) -> torch.device:
@@ -102,6 +104,16 @@ def _omega_digit_tables(ntt: nttm.NttTables, N: int) -> np.ndarray:
     return out.astype(np.uint32)
 
 
+def _omega_pow_table(ntt: nttm.NttTables, N: int) -> np.ndarray:
+    """Montgomery form of psi_l^j for j < 2N (psi^j = p - psi^(j-N) for
+    j >= N), so that X^a at NTT position pos is the entry at
+    (2·eo[pos]+1)·a mod 2N, the product of the six digit tables above."""
+    psi = mm.as_u32(ntt.psi.cpu()).numpy().astype(np.uint64)       # (2, N)
+    primes = np.asarray(ntt.primes, np.uint64)[:, None]
+    pows = np.concatenate([psi, primes - psi], axis=1)
+    return (pows * (np.uint64(1) << np.uint64(32)) % primes).astype(np.uint32)
+
+
 def make_context(lwe_n: int = LWE_N, device="cuda") -> TfheContext:
     """STD128 TFHE context (reference host/tfhe/context.cu:36-57) on `device`.
 
@@ -119,7 +131,9 @@ def make_context(lwe_n: int = LWE_N, device="cuda") -> TfheContext:
         ks_base_bit=KS_BASE_BIT, ks_length=KS_LENGTH, primes=tuple(primes),
         ntt=ntt, base=rns.Base.build(primes, device), p1p2=p1 * p2,
         p1_inv_p2=pow(p1, -1, p2), offset=offset,
-        omega_bits=mm.u32_to_i32(_omega_digit_tables(ntt, TRLWE_N)).to(device))
+        omega_bits=mm.u32_to_i32(_omega_digit_tables(ntt, TRLWE_N)).to(device),
+        omega_pows=mm.u32_to_i32(_omega_pow_table(ntt, TRLWE_N)).to(device),
+        omega_exps=torch.from_numpy(2 * nttm.eval_order(TRLWE_N) + 1).to(device))
 
 
 # =========================================================================

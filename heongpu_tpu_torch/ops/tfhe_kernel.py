@@ -36,9 +36,21 @@ def _check(acc, a_t, key, ctx, unrolled: bool):
             raise ValueError("the blind rotation takes contiguous int32 tensors")
         if x.device != ctx.device:
             raise ValueError(f"tensor on {x.device}, context on {ctx.device}")
-    if (N, ctx.k, ctx.l, ctx.bg_bit) != (1024, 1, 2, 10) or max(ctx.primes) >= 1 << 30:
+    if ((N, ctx.k, ctx.l, ctx.bg_bit) != (1024, 1, 2, 10)
+            or not all(1 << 29 < p < 1 << 30 for p in ctx.primes)):
         raise ValueError("the blind rotation takes the STD128 shape (N=1024, k=1, l=2, "
-                         "bg_bit=10) over primes < 2**30")
+                         "bg_bit=10) over primes in (2**29, 2**30)")
+
+
+def launch_args(acc, out, a_t, key, ctx, unrolled: bool):
+    """The arguments of the C entry point hf_blind_rotate but the stream."""
+    tb = ctx.ntt
+    tabs = (tb.p, tb.pinv, tb.r1, ctx.omega_pows, ctx.omega_exps,
+            tb.tw1p, tb.tw1p_sh, tb.tw2p, tb.tw2p_sh, tb.itw1p, tb.itw1p_sh,
+            tb.itw2p, tb.itw2p_sh, tb.tw_mat, tb.tw_mat_sh, tb.itw_mat, tb.itw_mat_sh)
+    inv_sh = (ctx.p1_inv_p2 << 32) // ctx.primes[1]
+    return (int(unrolled), acc.data_ptr(), out.data_ptr(), a_t.data_ptr(), key.data_ptr(),
+            acc.shape[0], a_t.shape[1], *(t.data_ptr() for t in tabs), ctx.p1_inv_p2, inv_sh)
 
 
 def blind_rotate_cuda(acc, a_t, key, ctx, unrolled: bool = False):
@@ -48,15 +60,11 @@ def blind_rotate_cuda(acc, a_t, key, ctx, unrolled: bool = False):
     _check(acc, a_t, key, ctx, unrolled)
     if not acc.is_cuda:
         raise ValueError("blind_rotate_cuda takes CUDA tensors")
-    tb = ctx.ntt
+    if key.data_ptr() % 16:
+        raise ValueError("the kernel copies the key in 16-byte pieces: it must be 16-byte aligned")
     out = torch.empty_like(acc)
-    tabs = (tb.tw1p, tb.tw1p_sh, tb.tw2p, tb.tw2p_sh, tb.itw1p, tb.itw1p_sh,
-            tb.itw2p, tb.itw2p_sh, tb.tw_mat, tb.tw_mat_sh, tb.itw_mat, tb.itw_mat_sh)
-    err = kernels.library().hf_blind_rotate(
-        int(unrolled), acc.data_ptr(), out.data_ptr(), a_t.data_ptr(), key.data_ptr(),
-        acc.shape[0], a_t.shape[1], tb.p.data_ptr(), tb.pinv.data_ptr(), tb.r1.data_ptr(),
-        ctx.omega_bits.data_ptr(), *(t.data_ptr() for t in tabs), ctx.p1_inv_p2,
-        kernels.stream_of(acc))
+    err = kernels.library().hf_blind_rotate(*launch_args(acc, out, a_t, key, ctx, unrolled),
+                                            kernels.stream_of(acc))
     kernels.check(err, "blind_rotate")
     kernels.launches["blind_rotate2" if unrolled else "blind_rotate"] += 1
     return out

@@ -236,8 +236,8 @@ def test_ntt_kernel_tfhe_table(dev):
 
 
 @pytest.mark.parametrize("unrolled", [False, True])
-@pytest.mark.parametrize("lwe_n,batch", [(16, 1), (16, 8), (16, 37), (512, 1), (512, 8),
-                                         (512, 37)])
+@pytest.mark.parametrize("lwe_n,batch", [(16, 1), (16, 8), (16, 37), (16, 132), (16, 133),
+                                         (512, 1), (512, 8), (512, 37)])
 def test_blind_rotate_kernel_matches_plain(tfhe_keys, lwe_n, batch, unrolled):
     from heongpu_tpu_torch import kernels
     from heongpu_tpu_torch.models import tfhe
@@ -252,6 +252,25 @@ def test_blind_rotate_kernel_matches_plain(tfhe_keys, lwe_n, batch, unrolled):
     got = (tk.blind_rotate2 if unrolled else tk.blind_rotate)(acc, a_t, key, ctx)
     assert kernels.launches[name] == before + 1
     _equal(got, plain(acc, a_t, key, ctx))
+
+
+@pytest.mark.parametrize("unrolled", [False, True])
+def test_blind_rotate_kernel_random_accumulator(tfhe_keys, unrolled):
+    """An accumulator of uniform random residues (its CRT lift over all of [0, P),
+    across the P/2 wrap) and rotation amounts holding the X^a edges 0, 1, N-1, N,
+    2N-1: the kernel equals the plain chain bit for bit."""
+    from heongpu_tpu_torch.models import tfhe
+    from heongpu_tpu_torch.ops import tfhe_kernel as tk
+    ctx, _, _, bk, bk2 = tfhe_keys(16)
+    rng = np.random.default_rng(17)
+    acc = _residues(rng, list(ctx.primes), (5, 2, 2, ctx.N), dev=ctx.device)
+    N = ctx.N
+    a = np.resize(np.array([0, 1, N - 1, N, 2 * N - 1], np.int32), (5, ctx.n))
+    a[3] = rng.integers(0, 2 * N, ctx.n)
+    a_t = torch.from_numpy(a).to(ctx.device)
+    key = bk2.bk2 if unrolled else bk.bk
+    plain = tfhe.blind_rotate2_plain if unrolled else tfhe.blind_rotate_plain
+    _equal(tk.blind_rotate_cuda(acc, a_t, key, ctx, unrolled), plain(acc, a_t, key, ctx))
 
 
 @pytest.mark.parametrize("unrolled", [False, True])
@@ -280,6 +299,8 @@ def test_blind_rotate_wrappers_reject_bad_input(tfhe_keys):
     for args in ((acc.cpu(), a_t.cpu(), bk.bk.cpu()),
                  (acc.to(torch.int64), a_t, bk.bk),
                  (acc, a_t.t().contiguous().t(), bk.bk),
-                 (acc, a_t[:, :12].contiguous(), bk.bk[:12].contiguous())):
+                 (acc, a_t[:, :12].contiguous(), bk.bk[:12].contiguous()),
+                 (acc, a_t, torch.empty(bk.bk.numel() + 1, dtype=torch.int32,
+                                        device=acc.device)[1:].view(bk.bk.shape))):
         with pytest.raises(ValueError):
             tk.blind_rotate_cuda(*args, ctx)
