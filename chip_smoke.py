@@ -24,11 +24,13 @@ and a BootKey2 (K4, the key-unrolled chain).
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
-     the ptxas line (registers, stack, spills) of K3 and K4;
+     the ptxas line (registers, stack, spills) of K3 and K4 and of each of
+     K5's nine shape instantiations;
   3. K1 (NTT) against its plain torch version on the card, bit for bit,
      forward and inverse, N in {2^11, 2^12, 2^15, 2^16};
   4. K2 (keyswitch MAC, base conversion) against the plain version; K5
-     (fused keyswitch) against keyswitch2_fused_core_plain at N=2^12 and at
+     (fused keyswitch) against keyswitch2_fused_core_plain and against the
+     staged route (K2 base_conv, K1, K2 mac_keys, K1) at N=2^12 and at
      N=2^16, levels 0 and 1 (a short last digit group at level 1);
   5. the CKKS main path, with launch counts reset just before it and read
      just after (ntt_fwd, ntt_inv and keyswitch2_fused must launch); every
@@ -44,10 +46,11 @@ Phases (each raises on failure, so the script exits non-zero):
      (keyswitch_noise), the rotate-and-sum within TOL_SUM; one rotate and one
      rotate_hoisted on the CPU plain path must equal the card's residues;
   7. timings with CUDA events: the K=10 chain as ops/s, each kernel against
-     its plain version at the main-path shapes (K5 also against the staged
-     route of K2 and K1 on the same inputs), rotate, rotate_hoisted and the
-     rotate-and-sum; the device-idle share of one mult+relin and of one
-     rotate from torch.profiler;
+     its plain version at the main-path shapes (K5 at levels 0 and 1, each
+     beside the staged route of K2 and K1 on the same inputs and the ratio
+     of the two), rotate, rotate_hoisted and the rotate-and-sum; the
+     device-idle share of one mult+relin and of one rotate from
+     torch.profiler;
   8. K1 on the TFHE table (N=1024, 2 limbs; 8 and 512 rows); the STD128
      context and keys, with keygen's K1 launches held against plain as in
      phase 5; K3 and K4 against the plain chains at B=8, bit for bit;
@@ -346,6 +349,34 @@ def fused_inputs(ctx, level, gen):
     k0, k1 = (rand_residues(list(tb.primes) * d, (d * kqp, ctx.n), gen, ctx.device)
               .view(d, kqp, ctx.n) for _ in range(2))
     return z, ksf.build_fused_mat(lvl, kqp), k0, k1, tb, lvl.groups
+
+
+def staged_route(ctx, level, args):
+    """K5's function by the staged route on K5's arguments at a CKKS level:
+    K2 base_conv per digit, K1 forward, K2 mac_keys, K1 inverse."""
+    import torch
+    from heongpu_tpu_torch.ops import ntt as nttm
+    from heongpu_tpu_torch.ops import rns
+    z, _, k0, k1, tb, groups = args
+    digits = torch.stack([rns.base_conv_cuda(z[g[0]: g[-1] + 1], cv.mat_mont, cv.obase)
+                          for cv, g in zip(ctx.ks2[level].convs, groups)])
+    acc = rns.mac_keys_cuda(nttm.ntt_cuda(digits, tb, False), k0, k1, ctx.base_qp_at(level))
+    return nttm.ntt_cuda(acc, tb, True)
+
+
+def keyswitch_bound(args):
+    """K5's bound on its arguments: each input and the output once; the row
+    transforms of the d digits and the two halves, the digit build (one
+    product a term, one fold a digit) and the MAC (one product a digit and
+    half, one fold a half), over every limb."""
+    z, mat, k0, k1, tb, groups = args
+    ka, n = z.shape
+    d, kqp = len(groups), tb.num_limbs
+    tabs = (tb.p, tb.pinv, tb.mu, tb.tw_mat, tb.tw_mat_sh, tb.itw_mat, tb.itw_mat_sh, tb.tw1p,
+            tb.tw1p_sh, tb.tw2p, tb.tw2p_sh, tb.itw1p, tb.itw1p_sh, tb.itw2p, tb.itw2p_sh)
+    return bound(nbytes(z, mat, k0, k1, *tabs) + 2 * kqp * n * 4,
+                 transform_ops(d * kqp + 2 * kqp, n) + kqp * n * (ka * MAC_OPS + d * FOLD_OPS)
+                 + 2 * d * kqp * n * MAC_OPS + 2 * kqp * n * FOLD_OPS)
 
 
 def rotation_phase(ctx, cctx, sk, pk, card, errs):
@@ -657,6 +688,16 @@ def run(dev) -> int:
         print(f"ptxas tfhe.cu {name}: {line}")
     if log and len(ptxas) != 2:
         raise AssertionError(f"no ptxas line for both blind-rotation kernels: {ptxas}")
+    ks_ptxas = {}
+    for fn, line in ptxas_summary(log, "keyswitch2_fused_kernel").items():
+        l1, l2 = map(int, re.search(r"ILi(\d+)ELi(\d+)E", fn).groups())
+        ks_ptxas[(1 << l1, 1 << l2)] = line
+    for (n1, n2), line in sorted(ks_ptxas.items()):
+        print(f"ptxas keyswitch.cu keyswitch2_fused (n1, n2) = ({n1}, {n2}): {line}")
+    if log and len(ks_ptxas) != 9:
+        raise AssertionError(f"no ptxas line for each of K5's nine shapes: {ks_ptxas}")
+    if (256, 256) in ks_ptxas:
+        ptxas["keyswitch2_fused"] = ks_ptxas[(256, 256)]
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
@@ -716,15 +757,18 @@ def run(dev) -> int:
         raise AssertionError("MAC kernels disagree with the plain version")
 
     small = ckks.make_context(1 << 12, Q_BITS, ks_type="II", alpha=ALPHA, device=dev)
-    for c, level in ((small, 0), (ctx, 0), (ctx, 1)):
+    for c, level in ((small, 0), (small, 1), (ctx, 0), (ctx, 1)):
         args = fused_inputs(c, level, gen)
-        e = max_err(ksf.keyswitch2_fused_cuda(*args), ksf.keyswitch2_fused_core_plain(*args))
+        got = ksf.keyswitch2_fused_cuda(*args)
+        e_p = max_err(got, ksf.keyswitch2_fused_core_plain(*args))
+        e_s = max_err(got, staged_route(c, level, args))
         torch.cuda.synchronize()
-        errs["keyswitch2_fused"] = max(errs["keyswitch2_fused"], e)
+        errs["keyswitch2_fused"] = max(errs["keyswitch2_fused"], e_p, e_s)
         print(f"K5 keyswitch2_fused N={c.n} level {level}: z {tuple(args[0].shape)}, "
-              f"keys {tuple(args[2].shape)}, groups {args[5]}: err={e}")
-        if e:
-            raise AssertionError("K5 disagrees with keyswitch2_fused_core_plain")
+              f"keys {tuple(args[2].shape)}, groups {args[5]}: err={e_p} against the plain "
+              f"core, err={e_s} against the staged route")
+        if e_p or e_s:
+            raise AssertionError("K5 disagrees with keyswitch2_fused_core_plain or the staged route")
 
     # -- 5. the main path -------------------------------------------------------
     z = np.linspace(-1.0, 1.0, N // 2)
@@ -798,29 +842,11 @@ def run(dev) -> int:
     x32 = f48[:2].contiguous()
     z4 = rand_residues(ctx.q_primes[:4], (4, N), gen, dev)
     conv = ctx.ks2[0].convs[0]
-    fz, fmat, fk0, fk1, ftb, fgroups = fargs = fused_inputs(ctx, 0, gen)
-    lvl = ctx.ks2[0]
-
-    def staged():
-        """K5's function by the staged route: K2 base_conv per digit, K1
-        forward, K2 mac_keys, K1 inverse."""
-        digits = torch.stack([rns.base_conv_cuda(fz[g[0]: g[-1] + 1], cv.mat_mont, cv.obase)
-                              for cv, g in zip(lvl.convs, fgroups)])
-        acc = rns.mac_keys_cuda(nttm.ntt_cuda(digits, ftb, False), fk0, fk1, ctx.base_qp)
-        return nttm.ntt_cuda(acc, ftb, True)
-
-    e = max(max_err(ksf.keyswitch2_fused_cuda(*fargs), staged()),
-            max_err(staged(), ksf.keyswitch2_fused_core_plain(*fargs)))
-    torch.cuda.synchronize()
-    errs["keyswitch2_fused"] = max(errs["keyswitch2_fused"], e)
-    if e:
-        raise AssertionError("K5, the staged route and the plain core disagree")
     tb_f, tb_i = ctx.ntt_qp, ctx.ntt_qp
     ntt_tabs = lambda tb, inv: ((tb.itw_mat, tb.itw_mat_sh, tb.itw1p, tb.itw1p_sh, tb.itw2p,
                                  tb.itw2p_sh) if inv else (tb.tw_mat, tb.tw_mat_sh, tb.tw1p,
                                                            tb.tw1p_sh, tb.tw2p, tb.tw2p_sh))
     bq = ctx.base_qp
-    kd, kqp = len(fgroups), ftb.num_limbs
     timed = {
         "ntt_fwd": (lambda: nttm.ntt_cuda(x48, ctx.ntt_qp, False),
                     lambda: nttm.ntt_fwd_plain(x48, ctx.ntt_qp), "(3, 16, 2^16)",
@@ -839,13 +865,6 @@ def run(dev) -> int:
                       "(4 -> 16, 2^16)",
                       bound(nbytes(z4, conv.mat_mont, d[0], conv.obase.p, conv.obase.pinv,
                                    conv.obase.mu), 4 * 16 * N * MAC_OPS + 16 * N * FOLD_OPS)),
-        "keyswitch2_fused": (
-            lambda: ksf.keyswitch2_fused_cuda(*fargs),
-            lambda: ksf.keyswitch2_fused_core_plain(*fargs), "(level 0: z (12, 2^16), 3 digits)",
-            bound(nbytes(fz, fmat, fk0, fk1, x32, ftb.p, ftb.pinv, ftb.mu,
-                         *ntt_tabs(ftb, False), *ntt_tabs(ftb, True)),
-                  transform_ops(kd * kqp + 2 * kqp, N) + kd * kqp * N * (ALPHA * MAC_OPS + FOLD_OPS)
-                  + 2 * kd * kqp * N * MAC_OPS + 2 * kqp * N * FOLD_OPS)),
     }
     times, bounds = {}, {}
     for name, (kern, plain, shape, bnd) in timed.items():
@@ -854,9 +873,34 @@ def run(dev) -> int:
         times[name], bounds[name] = (ms, pms), bnd
         print(f"time {name} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
-    staged_ms = cuda_ms(staged, reps=20)
-    print(f"time keyswitch2_fused staged route (3 base_conv + ntt_fwd + mac_keys + ntt_inv) "
-          f"on the same inputs: {staged_ms:.4f} ms [{card}]")
+    # K5 at levels 0 and 1, each beside the staged route on the same inputs (held
+    # equal first), in turns: staged, kernel, kernel, staged
+    ks_levels = {}
+    for level in (0, 1):
+        fargs = fused_inputs(ctx, level, gen)
+        kern = lambda: ksf.keyswitch2_fused_cuda(*fargs)
+        route = lambda: staged_route(ctx, level, fargs)
+        e = max(max_err(kern(), route()), max_err(route(), ksf.keyswitch2_fused_core_plain(*fargs)))
+        torch.cuda.synchronize()
+        errs["keyswitch2_fused"] = max(errs["keyswitch2_fused"], e)
+        if e:
+            raise AssertionError(f"K5, the staged route and the plain core disagree at level {level}")
+        s_ms = [cuda_ms(route, reps=20)]
+        k_ms = [cuda_ms(kern, reps=20), cuda_ms(kern, reps=20)]
+        s_ms.append(cuda_ms(route, reps=20))
+        ms, sms = sum(k_ms) / 2, sum(s_ms) / 2
+        pms = cuda_ms(lambda: ksf.keyswitch2_fused_core_plain(*fargs), reps=3)
+        bnd = keyswitch_bound(fargs)
+        ks_levels[level] = {"ms": ms, "staged_ms": sms, "ratio_to_staged": ms / sms,
+                            "plain_ms": pms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                            "kernel_runs_ms": k_ms, "staged_runs_ms": s_ms}
+        print(f"time keyswitch2_fused level {level} (z {tuple(fargs[0].shape)}, "
+              f"{len(fargs[5])} digits, {fargs[4].num_limbs} limbs): kernel {ms:.4f} ms "
+              f"({k_ms[0]:.4f}, {k_ms[1]:.4f}), staged route (base_conv per digit + ntt_fwd + "
+              f"mac_keys + ntt_inv) {sms:.4f} ms ({s_ms[0]:.4f}, {s_ms[1]:.4f}), ratio "
+              f"{ms / sms:.4f}; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    times["keyswitch2_fused"] = (ks_levels[0]["ms"], ks_levels[0]["plain_ms"])
+    bounds["keyswitch2_fused"] = (ks_levels[0]["bound_ms"], ks_levels[0]["bound_by"])
     ckks_prof = {}
     print_profile("CKKS mult+relin", lambda: ckks.relinearize(ctx, ckks.multiply(ctx, ct1, ct2), rk),
                   5, card, ckks_prof, "mult_relin")
@@ -891,7 +935,9 @@ def run(dev) -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in sources.items()]
-    kernels_rec[-1]["staged_ms"] = staged_ms
+    kernels_rec[-1].update(staged_ms=ks_levels[0]["staged_ms"],
+                           ratio_to_staged=ks_levels[0]["ratio_to_staged"],
+                           level1=ks_levels[1])
     for k in kernels_rec:
         k.update(per_step.get(k["name"], {}))
         if k["name"] in ptxas:

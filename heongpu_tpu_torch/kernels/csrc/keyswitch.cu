@@ -11,56 +11,90 @@
 // and Montgomery form, out (2, kqp, N) canonical, coefficient domain.  Every sum is
 // exact and every result canonical, so it equals the plain composition
 // (ops/keyswitch_fused.py::keyswitch2_fused_core_plain) and the staged path bit for
-// bit.  The MAC folds each digit's product at once and adds the canonical terms mod
-// p: the same residue as one fold of the lazy 64-bit sum.
+// bit.  The MAC reduces each digit's product at once and adds the canonical terms
+// mod p: the same residue as one fold of the lazy 64-bit sum.
 //
 // Why the TPU design does not carry over.  The Pallas grid is one program per output
 // limb with the whole 2^16-word row in VMEM: 16 programs would fill 16 of 132 SMs,
 // and a 256 KB row is above the 227 KB a block may hold (K1's note, ntt.cu).
 //
-// Design.  The transform's own structure gives the fusion: in K1's four-step layout
-// the forward transform's second pass, the pointwise MAC and the inverse's first
-// pass all act on the same columns of the (N2, N1) view.  One cooperative launch
-// runs three phases, each block looping over work items, with a grid-wide barrier
-// (cooperative_groups grid sync) between them:
-//   A  per (digit j, limb l, column tile of the (N1, N2) view): build the digit
-//      tile from z and mat (exact 64-bit sum, one fold), forward pass 1 (merged CT
-//      stages, tw_mat) and the transposed write to scratch s1 (d, kqp, N);
-//   B  per (limb l, column tile of the (N2, N1) view): for each digit, forward pass
-//      2 (cyclic GS stages), reduction to [0, p), and the MAC with k0[j, l] and
-//      k1[j, l] into two canonical accumulators in shared memory; then for each
-//      half the inverse pass 1 (cyclic CT stages) and the transposed write with
-//      itw_mat to scratch s2 (2, kqp, N);
-//   C  per (half, limb, column tile): inverse pass 2 (merged GS stages) to out.
-// The stage and pass bodies are K1's (ntt_common.cuh).  The digits in the NTT domain
-// never reach device memory: the staged route (K2 base_conv, K1 forward, K2
-// mac_keys, K1 inverse) writes and reads them twice.  s1 and s2 (12.6 + 8.4 MB at
-// N = 2^16, kqp = 16, d = 3) stay in the 50 MB L2; the key rows are read once.
-// The grid is the occupancy limit times the SM count; a cooperative launch refused
-// for its size returns its error, which the wrapper raises.
+// Structure.  In K1's four-step layout (N = n1*n2, ops/ntt.py::split_n) the forward
+// transform's second pass, the pointwise MAC and the inverse's first pass act on the
+// same columns of the (n2, n1) view.  One cooperative launch runs three phases, each
+// block looping over work items, with a grid-wide barrier between them:
+//   A  per (digit j, limb l, tile of columns of the (n1, n2) view): the digit tile
+//      from z and mat (exact 64-bit sum, one fold), forward pass 1 (merged CT), the
+//      cross twiddle tw_mat, the transposed write to scratch s1 (d, kqp, N);
+//   B  per (limb l, tile of columns of the (n2, n1) view): for each digit, forward
+//      pass 2 (cyclic GS), reduction to [0, p) and the MAC with k0[j, l] and k1[j, l]
+//      into two accumulators held in registers; then for each half inverse pass 1
+//      (cyclic CT) and the transposed write with itw_mat to scratch s2 (2, kqp, N);
+//   C  per (half, limb, tile): inverse pass 2 (merged GS) to out.
+// The digits in the NTT domain never reach device memory (the staged route, K2
+// base_conv, K1 forward, K2 mac_keys, K1 inverse, writes and reads them twice); s1
+// and s2 (12.6 + 8.4 MB at N = 2^16, kqp = 16, d = 3) stay in the 50 MB L2.
 //
-// What bounds it on this card: the work and how it spreads, not the bytes.  At
-// N = 2^16, kqp = 16, d = 3 the call must move ~54 MB (keys 25.2, twiddle matrices
-// 16.8, output 8.4, z 3.1: 16 us at 3.35 TB/s) and runs 80 row transforms of 16 Shoup
-// butterfly stages plus the digit build and the MAC (~0.4 G int32 ops: ~24 us at
-// ~16.7 T int32 ops/s); a barrier per stage and the spread of the work items over
-// the SMs set its time.  Phase B holds a limb's serial chain (three digits' pass 2,
-// the MAC, two inverse passes) per tile, so its tiles are narrower (8 columns:
-// kqp * N1 / 8 = 512 items at the bench shape, for ~5 resident blocks per SM) than
-// those of phases A and C (32 columns, as K1).  Its index math (run-time division)
-// and the barrier per stage are where later work starts.
+// What bounds it on this card: at N = 2^16, kqp = 16, d = 3 the call must move
+// ~54 MB (keys 25.2, twiddle matrices 16.8, output 8.4, z 3.1: 16 us at 3.35 TB/s)
+// and do ~0.4 G int32 operations (80 row transforms of 16 Shoup butterfly stages,
+// the digit build and the MAC: ~24 us at ~16.7 T int32 ops/s).  So the operations,
+// and how evenly they spread over the SMs, set the floor.
+//
+// What the first body of this kernel spent its time on, at 0.29 ms (13.7x the
+// bound), and what this body does about each:
+//  - a block barrier after every butterfly stage, with 4 (phase B, 8-column tiles)
+//    to 16 butterflies a thread between two: ~50 barriers per phase-B item.  Now a
+//    column of S <= 256 points is held in registers by T = S/16 threads of one
+//    warp, 16 values each, and every stage runs there.  Forward kinds (spans S/2
+//    .. 1): thread k holds positions k + T*i and runs the four stages of span >= T;
+//    the values pass once through the warp's own columns of the shared tile behind
+//    a __syncwarp, after which thread k holds [16k, 16k + 16) and runs the log T
+//    stages of span < T.  Inverse kinds run the same schedule backwards.  Block
+//    barriers remain only around the coalesced tile loads and stores: 3 per item
+//    of phases A and C, 2 per digit of phase B.
+//  - run-time integer division in every butterfly and element copy (b % C, k / t,
+//    i / C with C and t run-time ints).  Now n1, n2, the tile widths and the thread
+//    counts are template parameters (hf_keyswitch2_fused dispatches on (log n1,
+//    log n2) over the nine shapes split_n gives for N = 2^8 .. 2^16), every index
+//    into a thread's 16 values is a constant, a stage twiddle index comes from the
+//    lane and the register index by shifts and masks, work items are decoded by
+//    shifts (tile counts are powers of two) and the digit of a phase-A row by a
+//    multiply-high with ceil(2^32 / kqp).
+//  - four shared loads and two stores per butterfly.  Now none: a value is loaded
+//    from the tile once per transform, exchanged once, stored once.  The tile is
+//    XOR-swizzled inside each 32-word group (swz below, found by exhaustive search
+//    per shape) so that the coalesced row copies, the strided and contiguous column
+//    reads and phase A's transposed read are all free of bank conflicts.
+//  - phase B's chain through shared memory.  Now the MAC reads the staged key tiles
+//    at the thread's own positions and adds into two register accumulators; the
+//    forward GS pass ends on distance-1 pairs and the inverse CT pass begins with
+//    them, so inverse pass 1 starts on the accumulators where they are and its
+//    strided layout writes s2 (with itw_mat) straight from registers, T consecutive
+//    words a column.
+//  - the spread over the card.  Each tile holds 4096 words (min(N, 4096)): 256
+//    threads hold 256/T columns.  At the bench shape (n1 = n2 = 256, T = 16, tiles
+//    of 16 columns, kqp = 16, d = 3): phase A 768 items, phase B 256, phase C 512;
+//    53,248 bytes of shared memory per block (three tiles and two stage tables),
+//    __launch_bounds__(256, 2) for two blocks a SM (at most 128 registers), so the
+//    grid is 264 blocks and phase B runs in one wave.
+// Measured on one H100 (PERF.md, kernels/keyswitch_phases.py): ~0.08 ms at the
+// bench shape, phases A / B / C ~24 / 30 / 7.5 us and ~12 us of waits at the two
+// grid barriers.  Cutting int32 instructions (Harvey-lazy CT butterflies, no
+// product where a cyclic twiddle is 1) made it slower, so the int32 issue rate is
+// not its limit; latency at 16 warps a SM and the tile loads that no work overlaps
+// are the likelier ones (not measured: no hardware counters on that machine).
 
 #include <cooperative_groups.h>
 
-#include "ntt_common.cuh"
+#include "ntt_common.cuh"   // shoup_lazy, fold, Kind
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxTile = 32;   // columns per tile of phases A and C, as K1
-constexpr int kMaxTileB = 8;   // columns per tile of phase B: 4x the items of a 32-wide tile
+constexpr int kVals = 16;         // values of a column a thread holds
+constexpr int kTileLog = 12;      // a tile holds min(N, 2^12) words
 
 struct Params {
   const u32* z;     // (ka, N)
@@ -70,117 +104,378 @@ struct Params {
   u32* s1;          // (d, kqp, N) scratch: forward pass 1 of every digit
   u32* s2;          // (2, kqp, N) scratch: inverse pass 1 of both halves
   u32* out;         // (2, kqp, N)
-  int ka, kqp, d, alpha, n1, n2, log1, log2, C, Cb;
+  int ka, kqp, d, alpha;
+  u32 kqp_recip;    // ceil(2^32 / kqp): row / kqp = umulhi(row, kqp_recip) for row < 2^16
   const u32 *p, *pinv, *mu;
   const u32 *tw_mat, *tw_mat_sh, *itw_mat, *itw_mat_sh;   // (kqp, N)
   const u32 *tw1p, *tw1p_sh, *tw2p, *tw2p_sh;              // (kqp, n1), (kqp, n2)
   const u32 *itw1p, *itw1p_sh, *itw2p, *itw2p_sh;
 };
 
-// Phase A, item = (j*kqp + l) * (n2/C) + tile.
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// a - m if a >= m, else a
+__device__ __forceinline__ u32 cred(u32 a, u32 m) { return min(a, a - m); }
+
+// a*b*2^-32 mod p, canonical, for a < p < 2^30 and any 32-bit b: the REDC of a
+// product below p*2^32, whose quotient is below 2p.
+__device__ __forceinline__ u32 mont_mul(u32 a, u32 b, u32 p, u32 pinv) {
+  const u32 lo = a * b, hi = __umulhi(a, b);
+  const u32 m = lo * pinv;
+  return cred(hi + __umulhi(m, p) + (lo != 0u), p);
+}
+
+// XOR swizzle of tile row r inside its 32-word group, per tile shape (2^LT * 16 rows,
+// 2^LC columns), chosen by exhaustive search so that each access pattern of a phase
+// (a warp's coalesced row copy, its strided and contiguous column reads and writes,
+// phase A's transposed read) hits 32 distinct banks.
+template <int LT, int LC>
+__device__ __forceinline__ int swz(int r) {
+  if (LT == 4) return r ^ (r >> 3);               // 256 x 16
+  if (LT == 3) return (r << 3) ^ ((r >> 2) * 5);  // 128 x 32
+  if (LT == 2) return (r << 4) ^ ((r >> 1) * 9);  // 64 x 32, 64 x 64
+  if (LT == 1) return LC == 4 ? r : r * 17;       // 32 x 16; 32 x 32, 32 x 64
+  return LC == 4 ? r : r << 1;                    // 16 x 16; 16 x 32
+}
+
+// A tile of 2^LC columns of S = 2^L points each, held by 2^(L-4) threads a column:
+// thread t holds column t >> LT as its k = t & (T-1)-th thread.
+template <int L, int LC_>
+struct Cols {
+  static constexpr int LT = L - 4, T = 1 << LT, S = 1 << L, LC = LC_, C = 1 << LC;
+  static constexpr int kActive = C << LT;     // threads that hold a column
+  static constexpr int kWords = S << LC;      // words of the tile
+  static constexpr int kPer = kWords / kThreads;  // words a thread copies
+  static_assert(L >= 4 && L <= 8 && kActive <= kThreads && kWords >= kThreads, "shape");
+  static_assert(LT == 0 || kActive % 32 == 0, "a column exchange needs whole warps");
+  __device__ static int at(int r, int c) { return ((r << LC) | c) ^ (swz<LT, LC>(r) & 31); }
+  // position of a thread's value i: strided k + T*i, contiguous 16*k + i
+  template <bool STRIDED>
+  __device__ static int pos(int k, int i) { return STRIDED ? k + (i << LT) : (k << 4) + i; }
+};
+
+// One butterfly stage of span 2^SIG on a column of S = 2^L points held by T = 2^(L-4)
+// threads of a warp, this thread the k-th.  KIND as in ntt_common.cuh:
+//  merged stages: group r >> (SIG+1), twiddle tw[2^(L-SIG-1) + group];
+//  cyclic stages: twiddle tw[2^SIG + (r & (2^SIG - 1))].
+// STRIDED: value i is position k + T*i (SIG >= L-4); else 16*k + i (SIG < 4).  Both
+// twiddle indices reduce to shifts and masks of k and the constant i.  CT takes
+// u < 2p and any v; GS takes both < 2p; both give values < 2p.  tw: (w, w_sh) pairs.
+template <int KIND, int L, int SIG, bool STRIDED>
+__device__ __forceinline__ void stage(u32 (&v)[kVals], const uint2* tw, int k, u32 p) {
+  constexpr int LT = L - 4;
+  constexpr int hs = STRIDED ? 1 << (SIG - LT) : 1 << SIG;   // span in registers
+  constexpr bool ct = KIND == kMergedCT || KIND == kCyclicCT;
+  constexpr bool merged = KIND == kMergedCT || KIND == kMergedGS;
+  static_assert(STRIDED ? SIG >= LT : SIG < 4, "span outside the layout");
+  const u32 p2 = p + p;
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) {
+    if (i & hs) continue;
+    int w;
+    if constexpr (merged && STRIDED) {
+      w = (1 << (L - SIG - 1)) + (i >> (SIG + 1 - LT));
+    } else if constexpr (merged) {
+      w = (1 << (L - SIG - 1)) + (k << (3 - SIG)) + (i >> (SIG + 1));
+    } else if constexpr (STRIDED) {
+      w = (1 << SIG) + k + ((i & (hs - 1)) << LT);
+    } else {
+      w = (1 << SIG) + (i & ((1 << SIG) - 1));
+    }
+    const uint2 ww = tw[w];
+    const u32 u = v[i], x = v[i + hs];
+    if constexpr (ct) {
+      const u32 t = shoup_lazy(x, ww.x, ww.y, p);
+      v[i] = cred(u + t, p2);
+      v[i + hs] = cred(u + p2 - t, p2);
+    } else {
+      v[i] = cred(u + x, p2);
+      v[i + hs] = shoup_lazy(u + p2 - x, ww.x, ww.y, p);
+    }
+  }
+}
+
+// Stages of span 2^A, 2^(A±1), ..., 2^B.
+template <int KIND, int L, int A, int B, bool STRIDED>
+__device__ __forceinline__ void stages(u32 (&v)[kVals], const uint2* tw, int k, u32 p) {
+  stage<KIND, L, A, STRIDED>(v, tw, k, p);
+  if constexpr (A != B) stages<KIND, L, (A < B ? A + 1 : A - 1), B, STRIDED>(v, tw, k, p);
+}
+
+template <class Sh, bool STRIDED>
+__device__ __forceinline__ void get(u32 (&v)[kVals], const u32* tile, int k, int col) {
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) v[i] = tile[Sh::at(Sh::template pos<STRIDED>(k, i), col)];
+}
+
+template <class Sh, bool STRIDED>
+__device__ __forceinline__ void put(const u32 (&v)[kVals], u32* tile, int k, int col) {
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) tile[Sh::at(Sh::template pos<STRIDED>(k, i), col)] = v[i];
+}
+
+// Forward kinds (spans S/2 .. 1): strided values in, contiguous values out, through
+// the warp's own columns of `tile`.
+template <int KIND, class Sh>
+__device__ __forceinline__ void column_fwd(u32 (&v)[kVals], u32* tile, const uint2* tw,
+                                           int k, int col, u32 p) {
+  constexpr int L = Sh::LT + 4, LT = Sh::LT;
+  stages<KIND, L, L - 1, LT, true>(v, tw, k, p);
+  if constexpr (LT > 0) {
+    put<Sh, true>(v, tile, k, col);
+    __syncwarp();
+    get<Sh, false>(v, tile, k, col);
+    stages<KIND, L, LT - 1, 0, false>(v, tw, k, p);
+  }
+}
+
+// Inverse kinds (spans 1 .. S/2): contiguous values in, strided values out.
+template <int KIND, class Sh>
+__device__ __forceinline__ void column_inv(u32 (&v)[kVals], u32* tile, const uint2* tw,
+                                           int k, int col, u32 p) {
+  constexpr int L = Sh::LT + 4, LT = Sh::LT;
+  if constexpr (LT > 0) {
+    stages<KIND, L, 0, LT - 1, false>(v, tw, k, p);
+    put<Sh, false>(v, tile, k, col);
+    __syncwarp();
+    get<Sh, true>(v, tile, k, col);
+  }
+  stages<KIND, L, LT, L - 1, true>(v, tw, k, p);
+}
+
+// The limb's packed stage table (S entries) as (w, w_sh) pairs.
+template <int S>
+__device__ __forceinline__ void load_table(uint2* dst, const u32* tw, const u32* tw_sh,
+                                           int limb) {
+  for (int i = threadIdx.x; i < S; i += kThreads)
+    dst[i] = make_uint2(tw[limb * S + i], tw_sh[limb * S + i]);
+}
+
+// Shared memory, in words: three tiles of min(N, 4096) words and two stage tables.
+template <int L1, int L2>
+struct Layout {
+  using A = Cols<L1, cmin(L2, kTileLog - L1)>;   // phases A and C: columns of n1 points
+  using B = Cols<L2, cmin(L1, kTileLog - L2)>;   // phase B: columns of n2 points
+  static_assert(A::kWords == B::kWords, "one tile size");
+  static constexpr int kTile = A::kWords;
+  static constexpr int kTabOff = 3 * kTile;
+  static constexpr int kWords = kTabOff + 4 * (1 << L2);   // n2 >= n1
+  static constexpr int kLogTilesA = L2 - A::LC, kLogTilesB = L1 - B::LC;
+};
+
+// Phase A, item = (j*kqp + l) << kLogTilesA | tile.
+template <int L1, int L2>
 __device__ void phase_a(const Params& P, u32* sm, int item) {
-  const int C = P.C, pitch = C + 1, n1 = P.n1, n2 = P.n2;
-  const int tiles = n2 / C;
-  const int c0 = (item % tiles) * C;
-  const int row = item / tiles;
-  const int j = row / P.kqp, l = row - j * P.kqp;
-  const size_t N = (size_t)n1 * n2;
-  u32* tile = sm;
-  u32* twl = sm + n1 * pitch;
-  u32* twl_sh = twl + n1;
+  using Y = Layout<L1, L2>;
+  using Sh = typename Y::A;
+  constexpr int n2 = 1 << L2, N = 1 << (L1 + L2);
+  const int row = item >> Y::kLogTilesA;
+  const int c0 = (item & ((1 << Y::kLogTilesA) - 1)) << Sh::LC;
+  const int j = __umulhi(row, P.kqp_recip), l = row - j * P.kqp;
+  u32* x = sm;
+  u32* w = sm + Y::kTile;
+  u32* wsh = w + Y::kTile;
+  uint2* tw = reinterpret_cast<uint2*>(sm + Y::kTabOff);
   const u32 p = P.p[l], pinv = P.pinv[l], mu = P.mu[l];
   int terms = P.ka - j * P.alpha;            // a short last group has fewer
   if (terms > P.alpha) terms = P.alpha;
-  const u32* zj = P.z + (size_t)j * P.alpha * N;
-  const u32* mj = P.mat + (size_t)j * P.alpha * P.kqp + l;
-  load_twiddles(twl, twl_sh, P.tw1p, P.tw1p_sh, l, n1);
-  for (int i = threadIdx.x; i < n1 * C; i += blockDim.x) {
-    const int r = i / C, c = i - (i / C) * C;
-    const size_t pos = (size_t)r * n2 + c0 + c;
-    u64 acc = 0;
-    for (int t = 0; t < terms; ++t) acc += (u64)zj[(size_t)t * N + pos] * mj[t * P.kqp];
-    tile[r * pitch + c] = fold(acc, p, pinv, mu);
+  const u32* zj = P.z + (size_t)j * P.alpha * N + c0;
+  const u32* mj = P.mat + j * P.alpha * P.kqp + l;
+  const size_t lo = (size_t)l * N + c0;
+  __syncthreads();   // the block's previous item is done with the shared memory
+  load_table<1 << L1>(tw, P.tw1p, P.tw1p_sh, l);
+  u64 acc[Sh::kPer];
+#pragma unroll
+  for (int q = 0; q < Sh::kPer; ++q) acc[q] = 0;
+  for (int t = 0; t < terms; ++t) {
+    const u32 m = mj[t * P.kqp];
+    const u32* zt = zj + (size_t)t * N;
+#pragma unroll
+    for (int q = 0; q < Sh::kPer; ++q) {
+      const int e = threadIdx.x + q * kThreads;
+      acc[q] += (u64)zt[(e >> Sh::LC) * n2 + (e & (Sh::C - 1))] * m;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < Sh::kPer; ++q) {
+    const int e = threadIdx.x + q * kThreads;
+    const int r = e >> Sh::LC, c = e & (Sh::C - 1), at = Sh::at(r, c);
+    x[at] = fold(acc[q], p, pinv, mu);
+    w[at] = P.tw_mat[lo + r * n2 + c];
+    wsh[at] = P.tw_mat_sh[lo + r * n2 + c];
   }
   __syncthreads();
-  pass1_tile<false>(tile, n1, P.log1, n2, C, c0, twl, twl_sh, P.tw_mat + l * N,
-                    P.tw_mat_sh + l * N, p, P.s1 + (size_t)row * N);
-  __syncthreads();   // the block's next item reuses the shared memory
+  if (threadIdx.x < Sh::kActive) {
+    const int k = threadIdx.x & (Sh::T - 1), col = threadIdx.x >> Sh::LT;
+    u32 v[kVals];
+    get<Sh, true>(v, x, k, col);
+    column_fwd<kMergedCT, Sh>(v, x, tw, k, col, p);
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) {
+      const int at = Sh::at(Sh::template pos<false>(k, i), col);
+      v[i] = shoup_lazy(v[i], w[at], wsh[at], p);
+    }
+    put<Sh, false>(v, x, k, col);
+  }
+  __syncthreads();
+  // transposed write: s1 row viewed as (n2, n1); the tile's columns are consecutive
+  // rows there, so thread e writes word c0*n1 + e
+  u32* dst = P.s1 + (size_t)row * N + (size_t)c0 * Sh::S;
+#pragma unroll
+  for (int q = 0; q < Sh::kPer; ++q) {
+    const int e = threadIdx.x + q * kThreads;
+    dst[e] = x[Sh::at(e & (Sh::S - 1), e >> L1)];
+  }
 }
 
-// Phase B, item = l * (n1/Cb) + tile.  Shared memory: tile n2*(Cb+1), four stage
-// tables of n2, two accumulators of n2*Cb.
+// Phase B, item = l << kLogTilesB | tile.
+template <int L1, int L2>
 __device__ void phase_b(const Params& P, u32* sm, int item) {
-  const int C = P.Cb, pitch = C + 1, n1 = P.n1, n2 = P.n2;
-  const int tiles = n1 / C;
-  const int c0 = (item % tiles) * C;
-  const int l = item / tiles;
-  const size_t N = (size_t)n1 * n2;
+  using Y = Layout<L1, L2>;
+  using Sh = typename Y::B;
+  constexpr int n1 = 1 << L1, n2 = 1 << L2, N = 1 << (L1 + L2);
+  const int l = item >> Y::kLogTilesB;
+  const int c0 = (item & ((1 << Y::kLogTilesB) - 1)) << Sh::LC;
   const size_t LN = (size_t)P.kqp * N;
-  const int E = n2 * C;
-  u32* tile = sm;
-  u32* tw = sm + n2 * pitch;
-  u32* tw_sh = tw + n2;
-  u32* itw = tw_sh + n2;
-  u32* itw_sh = itw + n2;
-  u32* acc0 = itw_sh + n2;
-  u32* acc1 = acc0 + E;
-  const u32 p = P.p[l], pinv = P.pinv[l], mu = P.mu[l];
-  load_twiddles(tw, tw_sh, P.tw2p, P.tw2p_sh, l, n2);
-  load_twiddles(itw, itw_sh, P.itw2p, P.itw2p_sh, l, n2);
+  u32* x = sm;
+  u32* y0 = sm + Y::kTile;
+  u32* y1 = y0 + Y::kTile;
+  uint2* tw = reinterpret_cast<uint2*>(sm + Y::kTabOff);
+  uint2* itw = tw + n2;
+  const u32 p = P.p[l], pinv = P.pinv[l];
+  const int k = threadIdx.x & (Sh::T - 1), col = threadIdx.x >> Sh::LT;
+  const bool active = threadIdx.x < Sh::kActive;
+  u32 acc0[kVals], acc1[kVals];
   for (int j = 0; j < P.d; ++j) {
-    const size_t off = (size_t)j * LN + (size_t)l * N;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const int r = i / C, c = i - (i / C) * C;
-      tile[r * pitch + c] = P.s1[off + (size_t)r * n1 + c0 + c];
+    const size_t off = (size_t)j * LN + (size_t)l * N + c0;
+    __syncthreads();   // the tiles' previous contents are read
+    if (j == 0) {
+      load_table<n2>(tw, P.tw2p, P.tw2p_sh, l);
+      load_table<n2>(itw, P.itw2p, P.itw2p_sh, l);
+    }
+#pragma unroll
+    for (int q = 0; q < Sh::kPer; ++q) {
+      const int e = threadIdx.x + q * kThreads;
+      const int r = e >> Sh::LC, c = e & (Sh::C - 1), at = Sh::at(r, c);
+      const size_t g = off + r * n1 + c;
+      x[at] = P.s1[g];
+      y0[at] = P.k0[g];
+      y1[at] = P.k1[g];
     }
     __syncthreads();
-    column_stages<kCyclicGS>(tile, n2, P.log2, C, pitch, tw, tw_sh, p);
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const int r = i / C, c = i - (i / C) * C;
-      const size_t pos = off + (size_t)r * n1 + c0 + c;
-      const u64 v = csub(tile[r * pitch + c], p);   // the digit's NTT value, < p
-      const u32 m0 = fold(v * P.k0[pos], p, pinv, mu);
-      const u32 m1 = fold(v * P.k1[pos], p, pinv, mu);
-      acc0[i] = j ? csub(acc0[i] + m0, p) : m0;
-      acc1[i] = j ? csub(acc1[i] + m1, p) : m1;
+    if (active) {
+      u32 v[kVals];
+      get<Sh, true>(v, x, k, col);
+      column_fwd<kCyclicGS, Sh>(v, x, tw, k, col, p);
+#pragma unroll
+      for (int i = 0; i < kVals; ++i) {
+        const int at = Sh::at(Sh::template pos<false>(k, i), col);
+        const u32 e = cred(v[i], p);   // the digit's NTT value, < p
+        const u32 m0 = mont_mul(e, y0[at], p, pinv), m1 = mont_mul(e, y1[at], p, pinv);
+        acc0[i] = j ? cred(acc0[i] + m0, p) : m0;
+        acc1[i] = j ? cred(acc1[i] + m1, p) : m1;
+      }
     }
-    __syncthreads();
   }
-  for (int half = 0; half < 2; ++half) {
-    const u32* acc = half ? acc1 : acc0;
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
-      const int r = i / C, c = i - (i / C) * C;
-      tile[r * pitch + c] = acc[i];
-    }
-    __syncthreads();
-    pass1_tile<true>(tile, n2, P.log2, n1, C, c0, itw, itw_sh, P.itw_mat + l * N,
-                     P.itw_mat_sh + l * N, p, P.s2 + half * LN + l * N);
-    __syncthreads();
-  }
+  if (!active) return;
+  // inverse pass 1 on the accumulators, then the transposed write with itw_mat: s2
+  // viewed as (n1, n2), the thread's value i at row c0 + col, column k + T*i
+  const size_t g0 = (size_t)l * N + (size_t)(c0 + col) * n2 + k;
+  const u32* im = P.itw_mat + g0;
+  const u32* im_sh = P.itw_mat_sh + g0;
+  column_inv<kCyclicCT, Sh>(acc0, x, itw, k, col, p);
+#pragma unroll
+  for (int i = 0; i < kVals; ++i)
+    P.s2[g0 + (i << Sh::LT)] = shoup_lazy(acc0[i], im[i << Sh::LT], im_sh[i << Sh::LT], p);
+  if (Sh::LT > 0) __syncwarp();   // the warp's strided reads of half 0 are done
+  column_inv<kCyclicCT, Sh>(acc1, x, itw, k, col, p);
+#pragma unroll
+  for (int i = 0; i < kVals; ++i)
+    P.s2[LN + g0 + (i << Sh::LT)] = shoup_lazy(acc1[i], im[i << Sh::LT], im_sh[i << Sh::LT], p);
 }
 
-// Phase C, item = (half*kqp + l) * (n2/C) + tile.
+// Phase C, item = (half*kqp + l) << kLogTilesA | tile.
+template <int L1, int L2>
 __device__ void phase_c(const Params& P, u32* sm, int item) {
-  const int C = P.C, tiles = P.n2 / C;
-  const int row = item / tiles;
-  const int l = row % P.kqp;
-  const size_t N = (size_t)P.n1 * P.n2;
-  pass2_tile<true>(sm, P.s2 + row * N, P.out + row * N, P.itw1p, P.itw1p_sh, l, P.p[l],
-                   P.n1, P.log1, P.n2, C, (item % tiles) * C);
+  using Y = Layout<L1, L2>;
+  using Sh = typename Y::A;
+  constexpr int n2 = 1 << L2, N = 1 << (L1 + L2);
+  const int row = item >> Y::kLogTilesA;
+  const int c0 = (item & ((1 << Y::kLogTilesA) - 1)) << Sh::LC;
+  const int l = row < P.kqp ? row : row - P.kqp;
+  const size_t off = (size_t)row * N + c0;
+  u32* x = sm;
+  uint2* tw = reinterpret_cast<uint2*>(sm + Y::kTabOff);
+  const u32 p = P.p[l];
   __syncthreads();
+  load_table<1 << L1>(tw, P.itw1p, P.itw1p_sh, l);
+#pragma unroll
+  for (int q = 0; q < Sh::kPer; ++q) {
+    const int e = threadIdx.x + q * kThreads;
+    const int r = e >> Sh::LC, c = e & (Sh::C - 1);
+    x[Sh::at(r, c)] = P.s2[off + r * n2 + c];
+  }
+  __syncthreads();
+  if (threadIdx.x < Sh::kActive) {
+    const int k = threadIdx.x & (Sh::T - 1), col = threadIdx.x >> Sh::LT;
+    u32 v[kVals];
+    get<Sh, false>(v, x, k, col);
+    column_inv<kMergedGS, Sh>(v, x, tw, k, col, p);
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) v[i] = cred(v[i], p);
+    put<Sh, true>(v, x, k, col);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < Sh::kPer; ++q) {
+    const int e = threadIdx.x + q * kThreads;
+    const int r = e >> Sh::LC, c = e & (Sh::C - 1);
+    P.out[off + r * n2 + c] = x[Sh::at(r, c)];
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) keyswitch2_fused_kernel(const Params P) {
-  extern __shared__ u32 sm[];
+template <int L1, int L2>
+__global__ void __launch_bounds__(kThreads, 2) keyswitch2_fused_kernel(const Params P) {
+  using Y = Layout<L1, L2>;
+  extern __shared__ __align__(16) u32 sm[];
   cg::grid_group grid = cg::this_grid();
-  const int na = P.d * P.kqp * (P.n2 / P.C);
-  for (int it = blockIdx.x; it < na; it += gridDim.x) phase_a(P, sm, it);
+  const int na = (P.d * P.kqp) << Y::kLogTilesA;
+  for (int it = blockIdx.x; it < na; it += gridDim.x) phase_a<L1, L2>(P, sm, it);
   grid.sync();
-  const int nb = P.kqp * (P.n1 / P.Cb);
-  for (int it = blockIdx.x; it < nb; it += gridDim.x) phase_b(P, sm, it);
+  const int nb = P.kqp << Y::kLogTilesB;
+  for (int it = blockIdx.x; it < nb; it += gridDim.x) phase_b<L1, L2>(P, sm, it);
   grid.sync();
-  const int nc = 2 * P.kqp * (P.n2 / P.C);
-  for (int it = blockIdx.x; it < nc; it += gridDim.x) phase_c(P, sm, it);
+  const int nc = (2 * P.kqp) << Y::kLogTilesA;
+  for (int it = blockIdx.x; it < nc; it += gridDim.x) phase_c<L1, L2>(P, sm, it);
+}
+
+// The cooperative launch of one shape: as many blocks as fit on the card at once,
+// and no more than the phase with the most work items has items.
+template <int L1, int L2>
+int launch(const Params& P, cudaStream_t stream) {
+  using Y = Layout<L1, L2>;
+  constexpr size_t smem = Y::kWords * sizeof(u32);
+  const void* kern = reinterpret_cast<const void*>(keyswitch2_fused_kernel<L1, L2>);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, keyswitch2_fused_kernel<L1, L2>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int na = (P.d * P.kqp) << Y::kLogTilesA, nb = P.kqp << Y::kLogTilesB;
+  const int nc = (2 * P.kqp) << Y::kLogTilesA;
+  const int most = na > nb ? (na > nc ? na : nc) : (nb > nc ? nb : nc);
+  const int grid = per_sm * sms < most ? per_sm * sms : most;
+  void* args[] = {const_cast<Params*>(&P)};
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -188,7 +483,9 @@ __global__ void __launch_bounds__(kThreads) keyswitch2_fused_kernel(const Params
 // The fused core on one level: see the note above for the layouts.  The tables are
 // NttTables' fields for the level's Q*P basis (p, pinv, mu; tw_mat, itw_mat and
 // their Shoup companions; the packed stage tables).  s1 (d, kqp, N) and s2 (2, kqp, N)
-// are scratch.  Returns the error of the cooperative launch, else cudaGetLastError().
+// are scratch.  Returns cudaErrorInvalidValue for a shape outside n1 = 2^4 .. 2^8
+// with n2 in {n1, 2*n1}, for kqp < 2 or for d*kqp >= 2^16, else the error of the cooperative
+// launch, else cudaGetLastError().
 extern "C" int hf_keyswitch2_fused(
     const void* z, const void* mat, const void* k0, const void* k1, void* s1, void* s2,
     void* out, int ka, int kqp, int d, int alpha, int n1, int n2, const void* p,
@@ -197,45 +494,32 @@ extern "C" int hf_keyswitch2_fused(
     const void* tw2p, const void* tw2p_sh, const void* itw1p, const void* itw1p_sh,
     const void* itw2p, const void* itw2p_sh, void* stream) {
   auto c = [](const void* v) { return static_cast<const u32*>(v); };
+  if (kqp < 2 || d < 1 || (long long)d * kqp >= (1 << 16)) return cudaErrorInvalidValue;
   Params P;
   P.z = c(z); P.mat = c(mat); P.k0 = c(k0); P.k1 = c(k1);
   P.s1 = static_cast<u32*>(s1); P.s2 = static_cast<u32*>(s2);
   P.out = static_cast<u32*>(out);
-  P.ka = ka; P.kqp = kqp; P.d = d; P.alpha = alpha; P.n1 = n1; P.n2 = n2;
-  P.log1 = ilog2(n1); P.log2 = ilog2(n2);
-  P.C = n1 < kMaxTile ? n1 : kMaxTile;   // n1 <= n2, so C and Cb divide both
-  P.Cb = n1 < kMaxTileB ? n1 : kMaxTileB;
+  P.ka = ka; P.kqp = kqp; P.d = d; P.alpha = alpha;
+  P.kqp_recip = static_cast<u32>(((1ull << 32) + kqp - 1) / kqp);
   P.p = c(p); P.pinv = c(pinv); P.mu = c(mu);
   P.tw_mat = c(tw_mat); P.tw_mat_sh = c(tw_mat_sh);
   P.itw_mat = c(itw_mat); P.itw_mat_sh = c(itw_mat_sh);
   P.tw1p = c(tw1p); P.tw1p_sh = c(tw1p_sh); P.tw2p = c(tw2p); P.tw2p_sh = c(tw2p_sh);
   P.itw1p = c(itw1p); P.itw1p_sh = c(itw1p_sh); P.itw2p = c(itw2p);
   P.itw2p_sh = c(itw2p_sh);
-
-  const size_t smem_ac = (size_t)(n1 * (P.C + 1) + 2 * n1) * sizeof(u32);
-  const size_t smem_b = (size_t)(n2 * (P.Cb + 1) + 4 * n2 + 2 * n2 * P.Cb) * sizeof(u32);
-  const size_t smem = smem_ac > smem_b ? smem_ac : smem_b;
-  cudaError_t err = cudaFuncSetAttribute(keyswitch2_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, keyswitch2_fused_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  // no more blocks than the phase with the most work items has items
-  const int na = d * kqp * (n2 / P.C), nb = kqp * (n1 / P.Cb), nc = 2 * kqp * (n2 / P.C);
-  const int items = na > nb ? (na > nc ? na : nc) : (nb > nc ? nb : nc);
-  const int grid = per_sm * sms < items ? per_sm * sms : items;
-  void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(keyswitch2_fused_kernel),
-                                    dim3(grid), dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int l1 = ilog2(n1), l2 = ilog2(n2);
+  if (n1 != 1 << l1 || n2 != 1 << l2) return cudaErrorInvalidValue;
+  switch (l1 * 16 + l2) {
+    case 4 * 16 + 4: return launch<4, 4>(P, st);
+    case 4 * 16 + 5: return launch<4, 5>(P, st);
+    case 5 * 16 + 5: return launch<5, 5>(P, st);
+    case 5 * 16 + 6: return launch<5, 6>(P, st);
+    case 6 * 16 + 6: return launch<6, 6>(P, st);
+    case 6 * 16 + 7: return launch<6, 7>(P, st);
+    case 7 * 16 + 7: return launch<7, 7>(P, st);
+    case 7 * 16 + 8: return launch<7, 8>(P, st);
+    case 8 * 16 + 8: return launch<8, 8>(P, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -81,6 +81,8 @@ def keyswitch2_fused_cuda(z, mat, k0, k1, tb: nttm.NttTables, groups):
         raise ValueError("the exact 64-bit digit sum takes at most 16 terms")
     if max(tb.primes) >= 1 << 30 or tb.n2 > 256:
         raise ValueError("the kernel takes primes < 2**30 and N <= 2^16")
+    if tb.n < 256:
+        raise ValueError(f"the kernel takes N >= 2^8 (a column of n1 >= 16 points), got N={tb.n}")
     out = torch.empty((2, kqp, n), dtype=mm.I32, device=z.device)
     s1 = torch.empty((d, kqp, n), dtype=mm.I32, device=z.device)
     s2 = torch.empty_like(out)

@@ -1,6 +1,7 @@
-// Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu uses, so that its
-// device code compiles with a C++20 host compiler and runs one block at a time
-// with one std::thread per CUDA thread (tests/test_torch_tfhe_host_kernel.py).
+// Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu and keyswitch.cu use,
+// so that their device code compiles with a C++20 host compiler and runs one block
+// at a time with one std::thread per CUDA thread (tests/test_torch_tfhe_host_kernel.py,
+// tests/test_torch_keyswitch_host_kernel.py).
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -18,7 +19,7 @@
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-extern thread_local dim3 threadIdx, blockIdx, blockDim;
+extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 struct uint2 {
   uint32_t x, y;
@@ -34,5 +35,5 @@ void __syncthreads();
 void __syncwarp(unsigned mask = 0xffffffffu);
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;

@@ -128,7 +128,7 @@ def test_slice_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("ka,alpha,p_count", [(4, 2, 2), (5, 2, 3), (12, 4, 4), (11, 4, 4)])
-@pytest.mark.parametrize("n", [256, 4096, 65536])
+@pytest.mark.parametrize("n", [256, 2048, 4096, 32768, 65536])
 def test_keyswitch_fused_kernel_matches_plain(dev, n, ka, alpha, p_count):
     """K5 against keyswitch2_fused_core_plain on the same inputs, on the card."""
     from heongpu_tpu_torch import kernels
@@ -159,6 +159,12 @@ def test_keyswitch_fused_wrapper_rejects_bad_input(dev):
                  (z, mat, k0[:1].contiguous(), k0[:1].contiguous()), (z.to(torch.int64), mat, k0, k0)):
         with pytest.raises(ValueError):
             tksf.keyswitch2_fused_cuda(*args, tb, lvl.groups)
+    n = 128   # below the smallest shape the kernel is built for (n1 = 16)
+    tb = tntt.build_ntt_tables(tnt.generate_ntt_primes(29, ka + alpha, n), n, device=dev)
+    z = _residues(rng, tb.primes[:ka], (ka, n), dev)
+    k0 = _residues(rng, tb.primes, (2, ka + alpha, n), dev)
+    with pytest.raises(ValueError, match="N >= 2"):
+        tksf.keyswitch2_fused_cuda(z, mat, k0, k0, tb, lvl.groups)
 
 
 def test_rotations_on_card_match_cpu(dev):
