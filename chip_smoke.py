@@ -24,10 +24,12 @@ and a BootKey2 (K4, the key-unrolled chain).
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
-     the ptxas line (registers, stack, spills) of K3 and K4 and of each of
-     K5's nine shape instantiations;
+     the ptxas line (registers, stack, spills) of K3 and K4, of each of K5's
+     nine shape instantiations and of K1's four pass kernels at each of its
+     nine shapes; a missing line, or a K1 or K5 instance that spills, fails;
   3. K1 (NTT) against its plain torch version on the card, bit for bit,
-     forward and inverse, N in {2^11, 2^12, 2^15, 2^16};
+     forward and inverse, N in {2^8, 2^9, 2^11, ..., 2^16} (2^10 in phase 8):
+     each of its nine shape instantiations;
   4. K2 (keyswitch MAC, base conversion) against the plain version; K5
      (fused keyswitch) against keyswitch2_fused_core_plain and against the
      staged route (K2 base_conv, K1, K2 mac_keys, K1) at N=2^12 and at
@@ -46,12 +48,16 @@ Phases (each raises on failure, so the script exits non-zero):
      (keyswitch_noise), the rotate-and-sum within TOL_SUM; one rotate and one
      rotate_hoisted on the CPU plain path must equal the card's residues;
   7. timings with CUDA events: the K=10 chain as ops/s, each kernel against
-     its plain version at the main-path shapes (K5 at levels 0 and 1, each
+     its plain version at the main-path shapes (K1 at the hoisting shapes
+     (3, 16, 2^16) forward and (2, 16, 2^16) inverse, and at the main path's
+     (12, 2^16) both ways and (2, 12, 2^16) forward, each with the device
+     time of its two passes from torch.profiler; K5 at levels 0 and 1, each
      beside the staged route of K2 and K1 on the same inputs and the ratio
      of the two), rotate, rotate_hoisted and the rotate-and-sum; the
      device-idle share of one mult+relin and of one rotate from
      torch.profiler;
-  8. K1 on the TFHE table (N=1024, 2 limbs; 8 and 512 rows); the STD128
+  8. K1 on the TFHE table (N=1024, 2 limbs; 8 and 512 rows), and timed both
+     ways at 32 rows (B=8 gates, 2 polys) as in phase 7; the STD128
      context and keys, with keygen's K1 launches held against plain as in
      phase 5; K3 and K4 against the plain chains at B=8, bit for bit;
   9. the TFHE main path, with launch counts reset just before it and read
@@ -142,6 +148,13 @@ def transform_ops(rows: int, n: int) -> int:
     return rows * (n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS + n * SHOUP_OPS)
 
 
+def ntt_tables(tb, inverse: bool):
+    """The tables K1 reads for one direction: the cross twiddles and the packed
+    stage tables, each with its Shoup companion."""
+    pre = "itw" if inverse else "tw"
+    return tuple(getattr(tb, pre + k) for k in ("_mat", "_mat_sh", "1p", "1p_sh", "2p", "2p_sh"))
+
+
 def ptxas_summary(log: str, kernel: str) -> dict:
     """{function: its ptxas line of registers and spills} for the functions
     whose (mangled) name holds `kernel`, from the `nvcc -Xptxas -v` build log."""
@@ -153,6 +166,11 @@ def ptxas_summary(log: str, kernel: str) -> dict:
         elif name and kernel in name and ("spill" in line or "registers" in line):
             out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
+
+
+def fmt_ms(x) -> str:
+    """A measured time (or share) for printing; None is a time not measured."""
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def card_line() -> str:
@@ -187,12 +205,16 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_idle_share(fn, reps: int):
+def device_idle_share(fn, reps: int, tries: int = 3):
     """(busy ms, wall ms, idle share, {kernel: ms}) per call of fn, over `reps`
     calls.  Busy is the union of the device events' intervals in a
     torch.profiler trace (only events on the card: a host op's self device
     time repeats its kernels'); wall is the host clock around an unprofiled,
-    synchronized run.  Raises if the trace holds no device event."""
+    synchronized run.  The profiler's device tracing sometimes delivers no
+    event at all; the trace is then taken again, up to `tries` times, and if
+    none holds a device event, busy and idle are None (not measured) and the
+    per-kernel dict is empty.  These are measurements only: what the kernels
+    launched and computed is checked elsewhere."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -203,14 +225,20 @@ def device_idle_share(fn, reps: int):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    if not evts:
-        raise AssertionError("torch.profiler recorded no device event")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        if evts:
+            break
+        print("  torch.profiler recorded no device event; tracing again")
+    else:
+        print(f"  torch.profiler recorded no device event in {tries} traces: "
+              "device time not measured")
+        return None, wall, None, {}
     busy_us, end, per_kernel = 0.0, float("-inf"), {}
     for e in sorted(evts, key=lambda e: e.time_range.start):
         s, t = e.time_range.start, e.time_range.end
@@ -220,6 +248,23 @@ def device_idle_share(fn, reps: int):
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (t - s) / 1e3 / reps
     busy = busy_us / 1e3 / reps
     return busy, wall, 1.0 - busy / wall, per_kernel
+
+
+# The port's kernel functions (the anonymous namespaces of kernels/csrc/*.cu) as
+# torch.profiler names them.
+OWN_KERNEL = re.compile(r"\(anonymous namespace\)::((?:ntt_(?:fwd|inv)[12]|mac_keys_kernel|"
+                        r"base_conv_kernel|keyswitch2_fused_kernel|blind_rotate_kernel)"
+                        r"(?:<[^>]*>)?)\(")
+
+
+def own_kernels(per_kernel: dict) -> dict:
+    """{port kernel function: device ms per call} out of device_idle_share's
+    per-kernel times."""
+    out = {}
+    for name, ms in per_kernel.items():
+        if m := OWN_KERNEL.search(name):
+            out[m.group(1)] = out.get(m.group(1), 0.0) + ms
+    return out
 
 
 def mac_keys_plain(d, k0, k1, base):
@@ -304,7 +349,7 @@ def require_launched(what, launches, names):
 
 def print_profile(what, fn, reps, card, tim, key):
     """The idle share and leading kernels of fn, and the hand-written kernels'
-    launches in one call of it."""
+    launches and device time (by kernel function) in one call of it."""
     import torch
     from heongpu_tpu_torch import kernels
     busy, wall, idle, per_kernel = device_idle_share(fn, reps)
@@ -312,12 +357,15 @@ def print_profile(what, fn, reps, card, tim, key):
     fn()
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.launches.items() if v}
+    own = own_kernels(per_kernel)
     tim.update({f"{key}_busy_ms": busy, f"{key}_wall_ms": wall, f"{key}_idle_share": idle,
-                f"{key}_launches": launches})
-    print(f"profile {what} x{reps}: device busy {busy:.4f} ms, wall {wall:.4f} ms per call "
-          f"-> idle share {idle:.4f}; kernel launches per call {launches} [{card}]")
+                f"{key}_launches": launches, f"{key}_kernel_ms": own})
+    print(f"profile {what} x{reps}: device busy {fmt_ms(busy)} ms, wall {wall:.4f} ms per call "
+          f"-> idle share {fmt_ms(idle)}; kernel launches per call {launches} [{card}]")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  device {ms:.4f} ms/call: {name[:100]}")
+    print("  hand-written kernels, device ms/call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items(), key=lambda kv: -kv[1])))
 
 
 def keyswitch_noise(ctx) -> float:
@@ -481,10 +529,11 @@ def rotation_phase(ctx, cctx, sk, pk, card, errs):
     return launches, record, timings
 
 
-def tfhe_phases(dev, card, check_ntt, errs):
+def tfhe_phases(dev, card, check_ntt, time_ntt, errs):
     """Phases 8-10: the TFHE gate-bootstrapping path at STD128 width.
     Returns (launch counts of its main path, kernel times, kernel bounds,
-    TFHE timings, {kernel: its per-SM bound and time per step})."""
+    TFHE timings, {kernel: its per-SM bound and time per step}, K1's timing
+    records on the TFHE table)."""
     import torch
     from heongpu_tpu_torch import kernels
     from heongpu_tpu_torch.models import tfhe, tfhe_int
@@ -647,7 +696,9 @@ def tfhe_phases(dev, card, check_ntt, errs):
         steps = ctx.n // 2 if unrolled else ctx.n
         bounds[name] = bound(nbytes(acc, a_t, key, acc, *tabs),
                              acc.shape[0] * steps * transform_ops(12, ctx.N))
-    return launches, {name: kt[(name, 8)] for name in chains}, bounds, tim, per_step
+    # K1 at the TFHE path's shape: B=8 gates, 2 polys of the 2-limb table
+    ntt_recs = {"ntt_fwd": [time_ntt(ctx.ntt, 16, False)], "ntt_inv": [time_ntt(ctx.ntt, 16, True)]}
+    return launches, {name: kt[(name, 8)] for name in chains}, bounds, tim, per_step, ntt_recs
 
 
 def main() -> int:
@@ -698,6 +749,23 @@ def run(dev) -> int:
         raise AssertionError(f"no ptxas line for each of K5's nine shapes: {ks_ptxas}")
     if (256, 256) in ks_ptxas:
         ptxas["keyswitch2_fused"] = ks_ptxas[(256, 256)]
+    ntt_ptxas = {}
+    for fn, line in ptxas_summary(log, "ntt_").items():
+        name, l1, l2 = re.search(r"(ntt_(?:fwd|inv)[12])ILi(\d+)ELi(\d+)E", fn).groups()
+        ntt_ptxas[(name, 1 << int(l1), 1 << int(l2))] = line
+    for (name, n1, n2), line in sorted(ntt_ptxas.items()):
+        print(f"ptxas ntt.cu {name} (n1, n2) = ({n1}, {n2}): {line}")
+    if log and len(ntt_ptxas) != 4 * 9:
+        raise AssertionError(f"no ptxas line for each of K1's four passes at nine shapes: "
+                             f"{ntt_ptxas}")
+    spills = [k for k, line in list(ks_ptxas.items()) + list(ntt_ptxas.items())
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError(f"K1 or K5 instances spill: {spills}")
+    for d in ("fwd", "inv"):
+        if (f"ntt_{d}1", 256, 256) in ntt_ptxas:
+            ptxas[f"ntt_{d}"] = "; ".join(f"pass {k}: {ntt_ptxas[(f'ntt_{d}{k}', 256, 256)]}"
+                                          for k in (1, 2))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
@@ -719,8 +787,32 @@ def run(dev) -> int:
         if e_f or e_i:
             raise AssertionError(f"NTT kernel disagrees with the plain version ({what})")
 
-    # -- 3. K1 against plain at small N ---------------------------------------
-    for n in (1 << 11, 1 << 12, 1 << 15):
+    def time_ntt(tb, polys, inverse):
+        """K1 on random residues (polys, limbs, N): kernel and plain ms (CUDA events
+        around back-to-back calls, so the host's launch rate where the device is
+        faster), the bound, and the device ms of each of its two passes and of both
+        (torch.profiler)."""
+        rows = polys * tb.num_limbs
+        x = rand_residues(list(tb.primes) * polys, (rows, tb.n), gen, dev)
+        x = x.view(polys, tb.num_limbs, tb.n)
+        kern = lambda: nttm.ntt_cuda(x, tb, inverse)
+        plain = nttm.ntt_inv_plain if inverse else nttm.ntt_fwd_plain
+        ms = cuda_ms(kern, reps=20)
+        pms = cuda_ms(lambda: plain(x, tb), reps=3)
+        bnd = bound(2 * nbytes(x) + nbytes(tb.p, *ntt_tables(tb, inverse)),
+                    transform_ops(rows, tb.n))
+        passes = {k.split("<")[0]: v for k, v in own_kernels(device_idle_share(kern, 10)[3]).items()}
+        shape = f"({polys}, {tb.num_limbs}, 2^{tb.logn})"
+        name = "ntt_inv" if inverse else "ntt_fwd"
+        dev_ms = sum(passes.values()) if passes else None
+        print(f"time {name} {shape}, {rows} rows: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}); device {fmt_ms(dev_ms)} ms, by pass "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(passes.items())) + f" [{card}]")
+        return {"shape": shape, "rows": rows, "ms": ms, "plain_ms": pms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "device_ms": dev_ms, "passes": passes}
+
+    # -- 3. K1 against plain at each of its nine shapes (2^10: phase 8, 2^16: below) --
+    for n in (1 << 8, 1 << 9, 1 << 11, 1 << 12, 1 << 13, 1 << 14, 1 << 15):
         tb = nttm.build_ntt_tables(nt.generate_ntt_primes(29, 4, n), n, device=dev)
         check_ntt(tb, 8, "small")
 
@@ -837,25 +929,16 @@ def run(dev) -> int:
     print(f"chain: K={K_CHAIN} mult+relin (through K5) in {chain_ms:.3f} ms -> "
           f"{ops_s:.3f} ops/s [{card}]")
 
-    x48 = rand_residues(qp * 3, (48, N), gen, dev).view(3, 16, N)
-    f48 = nttm.ntt_cuda(x48, ctx.ntt_qp, inverse=False)
-    x32 = f48[:2].contiguous()
+    # K1 at the hoisting shapes of earlier records (the kernel record's ms), then at
+    # the main path's: the INTT of c2 and the forward transform of both keyswitch
+    # halves in a mult+relin or a rotate
+    ntt_recs = {"ntt_fwd": [time_ntt(ctx.ntt_qp, 3, False), time_ntt(ctx.ntt_q(0), 2, False),
+                            time_ntt(ctx.ntt_q(0), 1, False)],
+                "ntt_inv": [time_ntt(ctx.ntt_qp, 2, True), time_ntt(ctx.ntt_q(0), 1, True)]}
     z4 = rand_residues(ctx.q_primes[:4], (4, N), gen, dev)
     conv = ctx.ks2[0].convs[0]
-    tb_f, tb_i = ctx.ntt_qp, ctx.ntt_qp
-    ntt_tabs = lambda tb, inv: ((tb.itw_mat, tb.itw_mat_sh, tb.itw1p, tb.itw1p_sh, tb.itw2p,
-                                 tb.itw2p_sh) if inv else (tb.tw_mat, tb.tw_mat_sh, tb.tw1p,
-                                                           tb.tw1p_sh, tb.tw2p, tb.tw2p_sh))
     bq = ctx.base_qp
     timed = {
-        "ntt_fwd": (lambda: nttm.ntt_cuda(x48, ctx.ntt_qp, False),
-                    lambda: nttm.ntt_fwd_plain(x48, ctx.ntt_qp), "(3, 16, 2^16)",
-                    bound(2 * nbytes(x48) + nbytes(tb_f.p, *ntt_tabs(tb_f, False)),
-                          transform_ops(48, N))),
-        "ntt_inv": (lambda: nttm.ntt_cuda(x32, ctx.ntt_qp, True),
-                    lambda: nttm.ntt_inv_plain(x32, ctx.ntt_qp), "(2, 16, 2^16)",
-                    bound(2 * nbytes(x32) + nbytes(tb_i.p, *ntt_tabs(tb_i, True)),
-                          transform_ops(32, N))),
         "mac_keys": (lambda: rns.mac_keys_cuda(d, k0, k1, bq),
                      lambda: mac_keys_plain(d, k0, k1, bq), "(3, 16, 2^16)",
                      bound(nbytes(d, k0, k1, d[:2], bq.p, bq.pinv, bq.mu),
@@ -866,7 +949,8 @@ def run(dev) -> int:
                       bound(nbytes(z4, conv.mat_mont, d[0], conv.obase.p, conv.obase.pinv,
                                    conv.obase.mu), 4 * 16 * N * MAC_OPS + 16 * N * FOLD_OPS)),
     }
-    times, bounds = {}, {}
+    times = {k: (r[0]["ms"], r[0]["plain_ms"]) for k, r in ntt_recs.items()}
+    bounds = {k: (r[0]["bound_ms"], r[0]["bound_by"]) for k, r in ntt_recs.items()}
     for name, (kern, plain, shape, bnd) in timed.items():
         ms = cuda_ms(kern, reps=20)
         pms = cuda_ms(plain, reps=3)
@@ -891,14 +975,20 @@ def run(dev) -> int:
         ms, sms = sum(k_ms) / 2, sum(s_ms) / 2
         pms = cuda_ms(lambda: ksf.keyswitch2_fused_core_plain(*fargs), reps=3)
         bnd = keyswitch_bound(fargs)
+        # the device time alone (torch.profiler): events around back-to-back calls read
+        # the host's launch rate where the host is the slower
+        own = own_kernels(device_idle_share(kern, 10)[3])
+        dev_ms = sum(own.values()) if own else None
         ks_levels[level] = {"ms": ms, "staged_ms": sms, "ratio_to_staged": ms / sms,
                             "plain_ms": pms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                            "kernel_runs_ms": k_ms, "staged_runs_ms": s_ms}
+                            "device_ms": dev_ms, "kernel_runs_ms": k_ms,
+                            "staged_runs_ms": s_ms}
         print(f"time keyswitch2_fused level {level} (z {tuple(fargs[0].shape)}, "
               f"{len(fargs[5])} digits, {fargs[4].num_limbs} limbs): kernel {ms:.4f} ms "
               f"({k_ms[0]:.4f}, {k_ms[1]:.4f}), staged route (base_conv per digit + ntt_fwd + "
               f"mac_keys + ntt_inv) {sms:.4f} ms ({s_ms[0]:.4f}, {s_ms[1]:.4f}), ratio "
-              f"{ms / sms:.4f}; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+              f"{ms / sms:.4f}; device {fmt_ms(dev_ms)} ms; plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) [{card}]")
     times["keyswitch2_fused"] = (ks_levels[0]["ms"], ks_levels[0]["plain_ms"])
     bounds["keyswitch2_fused"] = (ks_levels[0]["bound_ms"], ks_levels[0]["bound_by"])
     ckks_prof = {}
@@ -907,8 +997,10 @@ def run(dev) -> int:
     rot.update(time_rotations())
 
     # -- 8-10. the TFHE path ------------------------------------------------------
-    tfhe_launches, tfhe_times, tfhe_bounds, tfhe_tim, per_step = tfhe_phases(dev, card, check_ntt,
-                                                                             errs)
+    tfhe_launches, tfhe_times, tfhe_bounds, tfhe_tim, per_step, tfhe_ntt = tfhe_phases(
+        dev, card, check_ntt, time_ntt, errs)
+    for name, recs in tfhe_ntt.items():
+        ntt_recs[name] += recs
     # each kernel's launches on the three paths, each counted from 0 just before its path
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] for k in launches}
@@ -937,8 +1029,12 @@ def run(dev) -> int:
         for name, (src, rep) in sources.items()]
     kernels_rec[-1].update(staged_ms=ks_levels[0]["staged_ms"],
                            ratio_to_staged=ks_levels[0]["ratio_to_staged"],
-                           level1=ks_levels[1])
+                           device_ms=ks_levels[0]["device_ms"], level1=ks_levels[1])
     for k in kernels_rec:
+        if k["name"] in ntt_recs:
+            first = ntt_recs[k["name"]][0]
+            k.update(device_ms=first["device_ms"], passes=first["passes"],
+                     shapes=ntt_recs[k["name"]][1:])
         k.update(per_step.get(k["name"], {}))
         if k["name"] in ptxas:
             k["ptxas"] = ptxas[k["name"]]

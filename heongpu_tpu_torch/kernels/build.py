@@ -6,8 +6,10 @@ together, and the objects are linked by `nvcc -shared` into
 heongpu_tpu_torch/_build/libhf_kernels_<hash>.so, where <hash> covers the
 sources, the shared headers (csrc/*.cuh) and the flags, so a changed source
 builds anew at first use and an unchanged one is loaded as it is.  The
-sources share csrc/ntt_common.cuh, have a plain C interface and
-are bound with ctypes (no PyTorch headers, so a build takes seconds).
+sources share csrc/ntt_common.cuh (every source) and csrc/ntt_cols.cuh, the
+register-resident column transform of the NTT K1 (ntt.cu) and the fused
+keyswitch K5 (keyswitch.cu); they have a plain C interface and are bound
+with ctypes (no PyTorch headers, so a build takes seconds).
 """
 
 from __future__ import annotations

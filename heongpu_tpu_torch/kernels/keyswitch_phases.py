@@ -35,8 +35,8 @@ MARKS = (
     ("  grid.sync();\n  const int nb", "  STAMP(1);\n  grid.sync();\n  STAMP(2);\n  const int nb"),
     ("  grid.sync();\n  const int nc", "  STAMP(3);\n  grid.sync();\n  STAMP(4);\n  const int nc"),
     ("phase_c<L1, L2>(P, sm, it);\n}", "phase_c<L1, L2>(P, sm, it);\n  STAMP(5);\n}"),
-    ('#include "ntt_common.cuh"',
-     '#include "ntt_common.cuh"\n'
+    ('#include "ntt_cols.cuh"',
+     '#include "ntt_cols.cuh"\n'
      f"__device__ unsigned long long g_stamp[{MAX_BLOCKS}][{STAMPS}];\n"
      "#define STAMP(k) if (threadIdx.x == 0) { unsigned long long now; "
      'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now)); '

@@ -70,8 +70,6 @@ def keyswitch2(poly_q, k0, k1, ks2: KS2Level, ntt_qp_level: nttm.NttTables,
     acc = nttm.ntt_inv(rns.mac_keys(d_ntt, k0, k1, base_qp_level), ntt_qp_level)
     for stage in ks2.div_stages:
         acc = stage(acc)
-    d0, d1 = acc[0], acc[1]
     if out_ntt:
-        d0 = nttm.ntt_fwd(d0, ntt_q_level)
-        d1 = nttm.ntt_fwd(d1, ntt_q_level)
-    return d0, d1
+        acc = nttm.ntt_fwd(acc, ntt_q_level)   # both halves in one transform
+    return acc[0], acc[1]

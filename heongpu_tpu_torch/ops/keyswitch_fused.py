@@ -118,8 +118,6 @@ def keyswitch2_fused(poly_q, k0, k1, ks2, ntt_qp_level: nttm.NttTables,
     acc = keyswitch2_fused_core(z, mat, k0, k1, ntt_qp_level, ks2.groups)
     for stage in ks2.div_stages:
         acc = stage(acc)
-    d0, d1 = acc[0], acc[1]
     if out_ntt:
-        d0 = nttm.ntt_fwd(d0, ntt_q_level)
-        d1 = nttm.ntt_fwd(d1, ntt_q_level)
-    return d0, d1
+        acc = nttm.ntt_fwd(acc, ntt_q_level)   # both halves in one transform
+    return acc[0], acc[1]

@@ -366,7 +366,7 @@ def ntt_inv_plain(x, tb: NttTables):
 # ---------------------------------------------------------------------------
 
 def ntt_cuda(x, tb: NttTables, inverse: bool):
-    """Launch the two-pass CUDA NTT kernel (kernels/csrc/ntt.cu) on x."""
+    """Launch K1 (kernels/csrc/ntt.cu), two passes, on x."""
     from .. import kernels
     _check(x, tb)
     if not x.is_cuda:
@@ -375,8 +375,9 @@ def ntt_cuda(x, tb: NttTables, inverse: bool):
         raise ValueError("ntt_cuda takes contiguous int32 residues")
     if max(tb.primes) >= 1 << 30:
         raise ValueError("the lazy butterflies need primes < 2**30")
-    if tb.n2 > 256:
-        raise ValueError(f"the kernel takes N <= 2^16, got N={tb.n}")
+    if not 256 <= tb.n <= 1 << 16:
+        raise ValueError(f"the kernel takes N = 2^8 .. 2^16 (columns of n1 = 16 .. 256 "
+                         f"points), got N={tb.n}")
     out = torch.empty_like(x)
     tmp = torch.empty_like(x)
     if inverse:

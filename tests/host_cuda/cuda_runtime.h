@@ -1,7 +1,7 @@
-// Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu and keyswitch.cu use,
-// so that their device code compiles with a C++20 host compiler and runs one block
+// Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu, keyswitch.cu and ntt.cu
+// use, so that their device code compiles with a C++20 host compiler and runs one block
 // at a time with one std::thread per CUDA thread (tests/test_torch_tfhe_host_kernel.py,
-// tests/test_torch_keyswitch_host_kernel.py).
+// tests/test_torch_keyswitch_host_kernel.py, tests/test_torch_ntt_host_kernel.py).
 #pragma once
 #include <cstddef>
 #include <cstdint>

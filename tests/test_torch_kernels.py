@@ -41,9 +41,10 @@ def _equal(a, b):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("n,limbs,batch", [(256, 3, 2), (2048, 4, 2), (4096, 2, 1),
-                                           (32768, 2, 2), (65536, 12, 1),
-                                           (65536, 16, 3)])
+@pytest.mark.parametrize("n,limbs,batch", [(256, 3, 2), (512, 3, 2), (1024, 2, 4),
+                                           (2048, 4, 2), (4096, 2, 1), (8192, 2, 2),
+                                           (16384, 2, 2), (32768, 2, 2), (65536, 12, 1),
+                                           (65536, 12, 2), (65536, 16, 3)])
 def test_ntt_kernel_matches_plain(dev, n, limbs, batch):
     primes = tnt.generate_ntt_primes(29, limbs, n)
     tb = tntt.build_ntt_tables(primes, n, device=dev)
@@ -95,6 +96,12 @@ def test_wrappers_reject_bad_input(dev):
         tntt.ntt_cuda(x.t(), tb, inverse=False)
     with pytest.raises(ValueError):
         tntt.ntt_cuda(x.cpu(), tb, inverse=False)
+    n = 128   # below the smallest shape the kernel is built for (n1 = 16)
+    tb = tntt.build_ntt_tables(tnt.generate_ntt_primes(29, 2, n), n, device=dev)
+    x = _residues(np.random.default_rng(0), tb.primes, (2, n), dev)
+    for inverse in (False, True):
+        with pytest.raises(ValueError, match=r"N = 2\^8 \.\. 2\^16"):
+            tntt.ntt_cuda(x, tb, inverse)
 
 
 def test_slice_on_card_matches_cpu(dev):

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from heongpu_tpu_torch.kernels import build  # noqa: E402
+from heongpu_tpu_torch.kernels import keyswitch_phases  # noqa: E402
 from heongpu_tpu_torch.ops import keyswitch2 as tks2  # noqa: E402
 from heongpu_tpu_torch.ops import keyswitch_fused as tksf  # noqa: E402
 from heongpu_tpu_torch.ops import modmath as tm  # noqa: E402
@@ -153,3 +154,11 @@ def test_kernel_source_on_host_rejects_other_shapes(host_lib):
         fake = type("T", (), {"num_limbs": tb.num_limbs, "n1": n1, "n2": n2,
                               **{name: getattr(tb, name) for name in tksf._TABLES}})
         assert run_host(host_lib, z, mat, k0, k1, fake, groups)[0] != 0
+
+
+def test_phase_instrumentation_finds_its_markers():
+    """kernels/keyswitch_phases.py patches keyswitch.cu at text markers that must
+    each occur once: its instrumented copy holds all six stamps and the readout."""
+    src = keyswitch_phases.instrumented_source()
+    assert all(f"STAMP({k});" in src for k in range(keyswitch_phases.STAMPS))
+    assert src.count("g_stamp[blockIdx.x][k] = now;") == 1 and "hf_stamp_read" in src
