@@ -21,6 +21,14 @@ from a seeded CUDA generator, the gates, NOT and MUX at B=64 against their
 truth tables, huint8 add and sub, each with a BootKey (K3, the n-step chain)
 and a BootKey2 (K4, the key-unrolled chain).
 
+Then drives CKKS regular bootstrapping at full width: N=2^16, the
+reference's depth-48 precision configuration (composite q0, alpha 4 with six
+special primes: 54-limb QP bases and 12 digits, Taylor degree 9, six
+squarings, the arcsine term), keys (about 30 GB) made on the card from a
+seeded generator, one bootstrap of z ~ U(-0.5, 0.5) through mod_raise,
+coeff_to_slot (hoisting on K1/K2, each giant step's diagonal MAC on K2
+mac_keys, giant rotations on K5), eval_exp_sin twice and slot_to_coeff.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -36,8 +44,8 @@ Phases (each raises on failure, so the script exits non-zero):
      N=2^16, levels 0 and 1 (a short last digit group at level 1);
   5. the CKKS main path, with launch counts reset just before it and read
      just after (ntt_fwd, ntt_inv and keyswitch2_fused must launch); every
-     kernel launch of it at a new input shape is kept and, when the path
-     ends, held against the plain version on the same inputs
+     kernel launch of it at a new input shape is held against the plain
+     version on the same inputs right after it returns
      (held_against_plain); the residues of one multiply -> relinearize ->
      rescale must equal the CPU (plain path) run on copies of the same keys
      and inputs;
@@ -72,6 +80,23 @@ Phases (each raises on failure, so the script exits non-zero):
      huint8 add and MUX at B=64) and, from torch.profiler, the
      device-idle share and the leading kernels of NAND at B=8 and B=64 and
      of a huint8 add.
+ 11. bootstrap (a): N=256 in the precision configuration of
+     tests/test_ckks_boot.py, keys and pieces built on the CPU and moved to
+     the card; one regular_bootstrap on the card (every kernel launch at a
+     new shape held against plain) must equal the CPU plain path's residues,
+     and decode within 3e-5 of z;
+ 12. bootstrap (b): depth 48 at N=2^13, keys on the card, within 3e-5 (the
+     reference's one valid on-chip point read 1.7e-7); the errors between
+     the phases (mod_raise overflow, CtoS, EvalMod) printed;
+ 13. bootstrap (c), the main path: depth 48 at N=2^16, launch counts reset
+     just before one bootstrap and read just after (ntt_fwd, ntt_inv,
+     keyswitch2_fused, mac_keys and base_conv must launch), every launch at
+     a new shape held against plain as it happens; max and p99 error against
+     z within 3e-5 (above it the errors between the phases are printed
+     before the script fails); key-generation time and resident bytes; the median
+     of 3 bootstraps and of each phase (CUDA events), the device busy time
+     and idle share (torch.profiler); K5, mac_keys and base_conv timed at
+     the bootstrap's new shapes.
 The kernels' max_abs_err is the worst over every comparison above.  Each
 kernel's bound_ms is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and a lower count of its int32
@@ -113,6 +138,24 @@ TOL_DECODE_L1 = 2 * TOL_DECODE
 # A result that went through k keyswitches (rotations, conjugation, key
 # switching) is held to TOL_DECODE + 4·sqrt(k)·keyswitch_noise(ctx): see there.
 GAUSS_SIGMA = 3.2
+# Bootstrapping: the reference's depth-48 precision configuration (composite
+# q0 of two 29-bit primes, 46 28-bit scale primes, alpha 4 with six special
+# primes: 54-limb QP bases, 12 digits; Taylor degree 9, six squarings, the
+# arcsine term, pieces at the composite scale), at N=2^13 and N=2^16, hw 32.
+BOOT_Q_BITS = [29, 29] + [28] * 46
+BOOT_CTX = dict(scale_bits=28, alpha=4, p_count=6)
+BOOT_CFG = dict(taylor_degree=9, exp_squarings=6, base_count=2, arcsin_order=1, piece_depth=2,
+                ctos_pieces=2, stoc_pieces=2)
+BOOT_HW = 32
+# and the N=256 precision configuration of tests/test_ckks_boot.py
+PREC_Q_BITS = [29, 29] + [28] * 42
+PREC_CTX = dict(scale_bits=28, alpha=2, p_count=4)
+PREC_CFG = dict(taylor_degree=9, exp_squarings=5, base_count=2, arcsin_order=1, piece_depth=2)
+# The reference's regression limit for the precision configuration (it
+# measured 4.42e-6 at N=256 and 1.7e-7 at N=2^13, depth 48), held at every
+# size the bootstrap runs, N=2^16 included (the JAX package's broken N=2^16
+# runs read 0.50 and 1.9).
+TOL_BOOT_PRECISE = 3e-5
 TFHE_B = 64        # gates per batch on the TFHE main path
 HUINT_COUNT = 8    # huint8 integers per add: 64 bit ciphertexts
 GATES = {"NAND": lambda a, b: ~(a & b), "AND": lambda a, b: a & b,
@@ -305,21 +348,25 @@ def kernel_wrappers():
 @contextlib.contextmanager
 def held_against_plain(what, errs):
     """Runs the block with every kernel wrapper wrapped so that the first launch
-    at each distinct set of input shapes keeps copies of its inputs and output.
-    When the block ends, each kept output is held against the plain version on
-    the same inputs: the kernels are checked at exactly the shapes, and on the
-    data, that the block gave them.  The worst error goes into errs[kernel];
-    any difference raises."""
+    at each distinct set of input shapes is held against the plain version on
+    the same inputs right away: the kernels are checked at exactly the shapes,
+    and on the data, that the block gave them, and nothing is kept.  The worst
+    error goes into errs[kernel]; any difference raises.  Prints one line per
+    kernel when the block ends."""
     import torch
-    first, saved = {}, []
+    saved, checked = [], {}
     for mod, attr, namer, plain in kernel_wrappers():
         def recorded(*args, _fn=getattr(mod, attr), _namer=namer, _plain=plain):
             out = _fn(*args)
+            name = _namer(*args)
             shapes = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
-            key = (_namer(*args), shapes)
-            if key not in first:
-                first[key] = (_plain, [a.clone() if isinstance(a, torch.Tensor) else a
-                                       for a in args], out.clone())
+            seen = checked.setdefault(name, {})
+            if shapes not in seen:
+                seen[shapes] = e = max_err(out, _plain(*args))
+                errs[name] = max(errs[name], e)
+                if e:
+                    raise AssertionError(f"{name} disagrees with its plain version at a "
+                                         f"{what} shape {shapes}")
             return out
         saved.append((mod, attr, getattr(mod, attr)))
         setattr(mod, attr, recorded)
@@ -328,16 +375,11 @@ def held_against_plain(what, errs):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
-    for (name, shapes), (plain, args, out) in first.items():
-        e = max_err(out, plain(*args))
-        torch.cuda.synchronize()
-        errs[name] = max(errs[name], e)
-        print(f"{name} at a {what} shape {shapes[0]} against plain: err={e}")
-        if e:
-            raise AssertionError(f"{name} disagrees with its plain version at a {what} "
-                                 f"shape {shapes}")
-    if not first:
+    if not checked:
         raise AssertionError(f"{what} launched no kernel")
+    for name, seen in sorted(checked.items()):
+        print(f"{name}: {len(seen)} {what} shapes held against plain, "
+              f"max err={max(seen.values())}")
 
 
 def require_launched(what, launches, names):
@@ -701,6 +743,351 @@ def tfhe_phases(dev, card, check_ntt, time_ntt, errs):
     return launches, {name: kt[(name, 8)] for name in chains}, bounds, tim, per_step, ntt_recs
 
 
+def centered_coeffs_host(ctx, pt) -> np.ndarray:
+    """The centered coefficients of pt as float64, by a big-int CRT on the host
+    (they may exceed 2^59, the limit of the device compose)."""
+    from heongpu_tpu_torch.ops import ntt as nttm
+    ka = ctx.active(pt.level)
+    res = nttm.ntt_inv(pt.m, ctx.ntt_q(pt.level)).cpu().numpy().view(np.uint32).astype(object)
+    primes = [int(q) for q in ctx.q_primes[:ka]]
+    Q = 1
+    for q in primes:
+        Q *= q
+    acc = sum(res[i] * ((pow(Q // q, -1, q) * (Q // q)) % Q) for i, q in enumerate(primes)) % Q
+    return np.array([float(v - Q) if v >= Q // 2 else float(v) for v in acc])
+
+
+def boot_keys_to(keys, dev):
+    """A BootKeys with every tensor on `dev`."""
+    from heongpu_tpu_torch.models import ckks_boot, ringkit
+    one = lambda k: ringkit.GaloisKeyOne(*(t.to(dev) for t in (
+        k.k0, k.k1, k.perm_coeff_src, k.perm_coeff_neg, k.perm_ntt)), k.galois_elt, k.inv_form)
+    piece = lambda p: ckks_boot.Piece(p.level, p.n1, tuple((g, b, pts.to(dev))
+                                                          for g, b, pts in p.giants),
+                                      p.pt_scale, p.depth)
+    return ckks_boot.BootKeys(
+        gk=ringkit.GaloisKey({e: one(k) for e, k in keys.gk.keys.items()}),
+        rk=ringkit.KSKey(keys.rk.k0.to(dev), keys.rk.k1.to(dev)), cfg=keys.cfg,
+        msg_scale=keys.msg_scale, ctos_pieces=[piece(p) for p in keys.ctos_pieces],
+        stoc_pieces=[piece(p) for p in keys.stoc_pieces],
+        mult_i=tuple(t.to(dev) for t in keys.mult_i),
+        mult_neg_i=tuple(t.to(dev) for t in keys.mult_neg_i))
+
+
+def boot_key_bytes(keys) -> dict:
+    """Bytes of the Galois keys, the relin key and the diagonal plaintexts."""
+    gk = sum(nbytes(k.k0, k.k1) for k in keys.gk.keys.values())
+    pts = sum(nbytes(pts) for p in keys.ctos_pieces + keys.stoc_pieces for _, _, pts in p.giants)
+    return {"galois": gk, "relin": nbytes(keys.rk.k0, keys.rk.k1), "diagonals": pts}
+
+
+def boot_setup(n, q_bits, ctx_kw, cfg_kw, hw, seed, dev, key_dev=None):
+    """Context, keys and a ciphertext of z ~ U(-0.5, 0.5) at the last
+    base_count limbs.  Keys are made on key_dev (default: dev) from a seeded
+    torch.Generator there."""
+    import torch
+    from heongpu_tpu_torch.models import ckks, ckks_boot
+    from heongpu_tpu_torch.utils import rng
+    key_dev = key_dev or dev
+    ctx = ckks.make_context(n, q_bits, device=key_dev, **ctx_kw)
+    g = rng.new_generator(seed, key_dev)
+    sk = ckks.keygen_secret(ctx, g, hamming_weight=hw)
+    pk = ckks.keygen_public(ctx, g, sk)
+    cfg = ckks_boot.BootConfig(**cfg_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys = ckks_boot.generate_bootstrap_keys(ctx, g, sk, cfg)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    z = np.random.default_rng(seed).uniform(-0.5, 0.5, n // 2)
+    ct = ckks.encrypt(ctx, pk, ckks.encode(ctx, z, scale=keys.msg_scale), g)
+    ct = ckks.mod_drop(ctx, ct, ctx.k - cfg.base_count - ct.level)
+    return ctx, sk, keys, ct, z, keygen_s
+
+
+def boot_error(ctx, sk, out, z):
+    from heongpu_tpu_torch.models import ckks
+    got = ckks.decode(ctx, ckks.decrypt(ctx, sk, out))
+    if not np.isfinite(got).all() or got.shape != z.shape:
+        raise AssertionError("bootstrap output decodes to non-finite values or the wrong shape")
+    err = np.abs(got.real - z)
+    return float(err.max()), float(np.percentile(err, 99))
+
+
+def boot_phase_errors(ctx, sk, keys, ct):
+    """Decrypt between the phases (as benchmarks/benchmark_boot.py --debug
+    does): the CtoS output against c_in times the raised coefficients, and
+    EvalMod's against v = 2i·sin(2^r θ) (v − v^3/24 with the arcsine term).  Returns the largest overflow |I| of the
+    mod-raise (in units of q0), the largest θ and each phase's max abs
+    error."""
+    import math
+    from heongpu_tpu_torch.models import ckks, ckks_boot
+    cfg = keys.cfg
+    q0 = 1
+    for qj in ctx.q_primes[:cfg.base_count]:
+        q0 *= int(qj)
+    raised = ckks_boot.mod_raise(ctx, ct, cfg.base_count)
+    pt = ckks.decrypt(ctx, sk, raised)
+    coeffs = centered_coeffs_host(ctx, pt)
+    t0, _ = ckks_boot.coeff_to_slot(ctx, raised, keys)
+    c_in = 2 * math.pi * keys.msg_scale / ((1 << cfg.exp_squarings) * q0)
+    # slot j of t0 holds the low coefficient at the bit-reversal of j (the
+    # factored DFT skips the permutation; it cancels in slot_to_coeff)
+    half = ctx.n // 2
+    bits = half.bit_length() - 1
+    br = [int(format(j, f"0{bits}b")[::-1], 2) for j in range(half)]
+    want0 = c_in * coeffs[:half][br] / keys.msg_scale
+    g0 = ckks.decode(ctx, ckks.decrypt(ctx, sk, t0))
+    s0 = ckks_boot.eval_exp_sin(ctx, t0, keys)
+    gs = ckks.decode(ctx, ckks.decrypt(ctx, sk, s0))
+    v = 2j * np.sin((1 << cfg.exp_squarings) * want0)
+    want_s = v - v ** 3 / 24 if cfg.arcsin_order else v
+    return {"mod_raise_I_max": float(np.abs(coeffs).max() / q0),
+            "ctos_t0": float(np.abs(g0.real - want0).max()),
+            "theta_max": float(np.abs(want0).max()),
+            "eval_exp_sin_s0": float(np.abs(gs - want_s).max())}
+
+
+def time_bootstrap(ctx, keys, ct, reps: int = 3):
+    """Median ms of one regular_bootstrap and of each of its phases over
+    `reps` runs after a warm-up, CUDA events at the phase boundaries."""
+    import torch
+    from heongpu_tpu_torch.models import ckks_boot
+    names = ("mod_raise", "coeff_to_slot", "eval_exp_sin_t0", "eval_exp_sin_t1", "slot_to_coeff")
+    ckks_boot.regular_bootstrap(ctx, ct, keys)
+    runs = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        raised = ckks_boot.mod_raise(ctx, ct, keys.cfg.base_count)
+        ev[1].record()
+        t0, t1 = ckks_boot.coeff_to_slot(ctx, raised, keys)
+        ev[2].record()
+        s0 = ckks_boot.eval_exp_sin(ctx, t0, keys)
+        ev[3].record()
+        s1 = ckks_boot.eval_exp_sin(ctx, t1, keys)
+        ev[4].record()
+        ckks_boot.slot_to_coeff(ctx, s0, s1, keys)
+        ev[5].record()
+        torch.cuda.synchronize()
+        runs.append([ev[0].elapsed_time(ev[-1])] + [a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    med = np.median(np.array(runs), axis=0)
+    return float(med[0]), dict(zip(names, map(float, med[1:]))), [r[0] for r in runs]
+
+
+# The scheme-level steps of a bootstrap whose plain passes' device time
+# pass_profile reads: (module name, function).
+BOOT_PASSES = (("ckks_boot", "mod_raise"), ("ckks_boot", "matvec_piece"), ("ckks", "hoist"),
+               ("ckks", "p_scale_to_qtilde"), ("ckks", "rotate_hoisted_qtilde"),
+               ("ckks", "ks_finish_at"), ("ckks_boot", "rotate_exact"), ("ckks", "multiply"),
+               ("ckks", "relinearize"), ("ckks", "rescale"), ("ckks", "conjugate"),
+               ("ckks", "multiply_plain"), ("ckks", "multiply_by_monomial"),
+               ("ckks", "encode_const"), ("ckks", "add"), ("ckks", "sub"), ("ckks", "add_plain"),
+               ("ckks", "mod_drop"))
+
+
+def pass_profile(fn) -> dict:
+    """{step: device ms} of the plain torch passes in one call of fn (after a
+    warm-up), from a torch.profiler trace with a record_function range around
+    each function of BOOT_PASSES: each kernel's duration goes to the innermost
+    range whose host op launched it, so no kernel counts twice; kernels
+    launched outside every range go to "other".  The hand-written kernels,
+    launched through ctypes, have no host op in the trace and are left out
+    (own_kernels gives their time).  Empty when the trace holds no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from heongpu_tpu_torch.models import ckks, ckks_boot
+    mods = {"ckks": ckks, "ckks_boot": ckks_boot}
+    saved = []
+    for mod_name, attr in BOOT_PASSES:
+        mod = mods[mod_name]
+        f = getattr(mod, attr)
+
+        def ranged(*a, _f=f, _label=f"pass:{attr}", **k):
+            with record_function(_label):
+                return _f(*a, **k)
+        saved.append((mod, attr, f))
+        setattr(mod, attr, ranged)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    out = {}
+    for e in prof.events():
+        kern = getattr(e, "kernels", None)
+        if not kern:
+            continue
+        p = e
+        while p is not None and not p.name.startswith("pass:"):
+            p = p.cpu_parent
+        label = p.name[5:] if p is not None else "other"
+        out[label] = out.get(label, 0.0) + sum(k.duration for k in kern) / 1e3
+    return out
+
+
+def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
+    """Phases 11-13: CKKS regular bootstrapping.  (a) N=256 precision
+    configuration, keys built on the CPU and moved to the card: the card's
+    residues must equal the CPU's, error < TOL_BOOT_PRECISE; (b) depth 48 at
+    n_mid, keys on the card, error < TOL_BOOT_PRECISE; (c) the same at n_full
+    (the main path), every kernel launch at a new shape held against plain,
+    error < TOL_BOOT_PRECISE, timings, the profile and the kernels at the new
+    shapes.  Returns (launch counts of one bootstrap at n_full, record)."""
+    import torch
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks, ckks_boot
+    from heongpu_tpu_torch.ops import keyswitch_fused as ksf
+    from heongpu_tpu_torch.ops import rns
+    rec = {}
+
+    # -- 11. (a) card against CPU at N=256 -----------------------------------
+    t0 = time.perf_counter()
+    cctx, csk, ckeys, cct, z, _ = boot_setup(256, PREC_Q_BITS, PREC_CTX, PREC_CFG, 16, 21,
+                                             dev, key_dev="cpu")
+    cpu_out = ckks_boot.regular_bootstrap(cctx, cct, ckeys)
+    dctx = ckks.make_context(256, PREC_Q_BITS, device=dev, **PREC_CTX)
+    with held_against_plain("bootstrap N=256", errs):
+        out = ckks_boot.regular_bootstrap(
+            dctx, ckks.Ciphertext(cct.c.to(dev), cct.size, cct.level, cct.scale),
+            boot_keys_to(ckeys, dev))
+        torch.cuda.synchronize()
+    same = torch.equal(out.c.cpu(), cpu_out.c) and out.level == cpu_out.level
+    err_a, p99_a = boot_error(cctx, csk, cpu_out, z)
+    print(f"bootstrap (a) N=256, {len(PREC_Q_BITS)} primes, {PREC_CFG}: card residues identical "
+          f"to the CPU plain path's: {same}; max error {err_a:.3e} (limit {TOL_BOOT_PRECISE}), "
+          f"p99 {p99_a:.3e}; {time.perf_counter() - t0:.1f} s")
+    if not same or not err_a < TOL_BOOT_PRECISE:
+        raise AssertionError("bootstrap (a): card and CPU differ, or the error is above the limit")
+    rec["n256"] = {"identical_to_cpu": same, "max_abs_err": err_a, "p99_abs_err": p99_a}
+    del cctx, csk, ckeys, cct, cpu_out, dctx, out
+
+    # -- 12. (b) depth 48 at n_mid ----------------------------------------------
+    t0 = time.perf_counter()
+    ctx, sk, keys, ct, z, keygen_s = boot_setup(n_mid, BOOT_Q_BITS, BOOT_CTX, BOOT_CFG, BOOT_HW,
+                                                22, dev)
+    with held_against_plain(f"bootstrap N={n_mid}", errs):
+        out = ckks_boot.regular_bootstrap(ctx, ct, keys)
+        torch.cuda.synchronize()
+    err_b, p99_b = boot_error(ctx, sk, out, z)
+    # the between-phase decryption runs here every time, so that the
+    # diagnostic (c) prints when it fails is known to work on the card
+    dbg_b = boot_phase_errors(ctx, sk, keys, ct)
+    ms_b, _, _ = time_bootstrap(ctx, keys, ct)
+    print(f"bootstrap (b) N={n_mid}, depth {len(BOOT_Q_BITS)}, {BOOT_CFG}, hw {BOOT_HW}: max error "
+          f"{err_b:.3e} (limit {TOL_BOOT_PRECISE}), p99 {p99_b:.3e}; errors between the phases "
+          f"{dbg_b}; keygen {keygen_s:.1f} s; {ms_b:.2f} ms per bootstrap [{card}]; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not err_b < TOL_BOOT_PRECISE:
+        raise AssertionError(f"bootstrap (b) at N={n_mid}: error above the limit")
+    rec[f"n{n_mid}"] = {"max_abs_err": err_b, "p99_abs_err": p99_b, "phase_errors": dbg_b,
+                        "ms": ms_b, "keygen_s": keygen_s}
+    del ctx, sk, keys, ct, out
+    torch.cuda.empty_cache()
+
+    # -- 13. (c) the main path: depth 48 at n_full ----------------------------------
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated(dev)
+    ctx, sk, keys, ct, z, keygen_s = boot_setup(n_full, BOOT_Q_BITS, BOOT_CTX, BOOT_CFG,
+                                                BOOT_HW, 23, dev)
+    resident = torch.cuda.memory_allocated(dev) - mem0
+    kb = boot_key_bytes(keys)
+    pieces = [(p.level, p.n1, sum(len(b) for _, b, _ in p.giants), len(p.giants))
+              for p in keys.ctos_pieces + keys.stoc_pieces]
+    print(f"bootstrap (c) N={n_full}, depth {len(BOOT_Q_BITS)}: keygen {keygen_s:.1f} s; "
+          f"{len(keys.gk.keys)} Galois keys {kb['galois'] / 1e9:.3f} GB, relin "
+          f"{kb['relin'] / 1e9:.3f} GB, diagonals {kb['diagonals'] / 1e9:.3f} GB; resident "
+          f"{resident / 1e9:.3f} GB; pieces (level, n1, diagonals, giants) {pieces}")
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with held_against_plain(f"bootstrap N={n_full}", errs):
+        out = ckks_boot.regular_bootstrap(ctx, ct, keys)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    print(f"bootstrap (c) main path, held against plain: {time.perf_counter() - t1:.1f} s, "
+          f"launches per bootstrap {launches}")
+    require_launched("bootstrap main path", launches,
+                     ("ntt_fwd", "ntt_inv", "keyswitch2_fused", "mac_keys", "base_conv"))
+    err_c, p99_c = boot_error(ctx, sk, out, z)
+    print(f"bootstrap (c) max error {err_c:.3e} (limit {TOL_BOOT_PRECISE}), p99 {p99_c:.3e}, "
+          f"output level {out.level} [{card}]")
+    if not err_c < TOL_BOOT_PRECISE:
+        print(f"bootstrap (c) errors between the phases: {boot_phase_errors(ctx, sk, keys, ct)}")
+        raise AssertionError(f"bootstrap (c) at N={n_full}: error {err_c} above {TOL_BOOT_PRECISE}")
+    ms, phase_ms, runs = time_bootstrap(ctx, keys, ct)
+    print(f"time bootstrap N={n_full}: {ms:.3f} ms (median of {len(runs)}: "
+          + ", ".join(f"{r:.3f}" for r in runs) + "); phases "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phase_ms.items()) + f" ms [{card}]")
+    boot_prof = {}
+    print_profile(f"bootstrap N={n_full}", lambda: ckks_boot.regular_bootstrap(ctx, ct, keys), 1,
+                  card, boot_prof, "bootstrap")
+    steps = pass_profile(lambda: ckks_boot.regular_bootstrap(ctx, ct, keys))
+    own_ms = sum(boot_prof["bootstrap_kernel_ms"].values())
+    print(f"bootstrap N={n_full}, plain passes' device ms by step: " + (", ".join(
+        f"{k} {ms:.3f}" for k, ms in sorted(steps.items(), key=lambda kv: -kv[1]))
+        or "not measured") + f"; sum {sum(steps.values()):.3f}, hand-written kernels "
+        f"{own_ms:.3f}, device busy {fmt_ms(boot_prof['bootstrap_busy_ms'])} [{card}]")
+
+    # the kernels at the bootstrap's new shapes: K5 at level 0 (54 limbs, 12
+    # digits), K2 mac_keys over 12 digits x 54 limbs, base_conv 4 -> 54
+    shapes = {}
+    fargs = fused_inputs(ctx, 0, gen)
+    kern = lambda: ksf.keyswitch2_fused_cuda(*fargs)
+    e = max_err(kern(), ksf.keyswitch2_fused_core_plain(*fargs))
+    errs["keyswitch2_fused"] = max(errs["keyswitch2_fused"], e)
+    if e:
+        raise AssertionError("K5 disagrees with its plain version at the bootstrap's level 0")
+    shapes["keyswitch2_fused"] = (kern, lambda: ksf.keyswitch2_fused_core_plain(*fargs),
+                                  f"z {tuple(fargs[0].shape)}, {len(fargs[5])} digits, "
+                                  f"{fargs[4].num_limbs} limbs", keyswitch_bound(fargs))
+    bq = ctx.base_qp
+    qp = list(ctx.qp_primes)
+    nd = len(ctx.ks2[0].groups)
+    dd, k0, k1 = (rand_residues(qp * nd, (nd * len(qp), n_full), gen, dev).view(nd, len(qp), n_full)
+                  for _ in range(3))
+    shapes["mac_keys"] = (lambda: rns.mac_keys_cuda(dd, k0, k1, bq),
+                          lambda: mac_keys_plain(dd, k0, k1, bq), f"{tuple(dd.shape)}",
+                          bound(nbytes(dd, k0, k1, dd[:2], bq.p, bq.pinv, bq.mu),
+                                2 * dd.numel() * MAC_OPS + 2 * len(qp) * n_full * FOLD_OPS))
+    conv = ctx.ks2[0].convs[0]
+    k_in, k_out = conv.mat_mont.shape
+    zc = rand_residues([int(v) for v in conv.ibase.p.tolist()], (k_in, n_full), gen, dev)
+    shapes["base_conv"] = (lambda: rns.base_conv_cuda(zc, conv.mat_mont, conv.obase),
+                           lambda: base_conv_plain(zc, conv.mat_mont, conv.obase),
+                           f"{k_in} -> {k_out}",
+                           bound(nbytes(zc, conv.mat_mont, dd[0, :k_out], conv.obase.p,
+                                        conv.obase.pinv, conv.obase.mu),
+                                 k_in * k_out * n_full * MAC_OPS + k_out * n_full * FOLD_OPS))
+    for name, (kf, pf, what, bnd) in shapes.items():
+        e = max_err(kf(), pf())
+        errs[name] = max(errs[name], e)
+        if e:
+            raise AssertionError(f"{name} disagrees with its plain version at {what}")
+        ms_k = cuda_ms(kf, reps=10)
+        ms_p = cuda_ms(pf, reps=2, warm=1)
+        own = own_kernels(device_idle_share(kf, 5)[3])
+        dev_ms = sum(own.values()) if own else None
+        shapes[name] = {"shape": what, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
+                        "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"time {name} at the bootstrap's {what} (N={n_full}): kernel {ms_k:.4f} ms, device "
+              f"{fmt_ms(dev_ms)} ms, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    rec[f"n{n_full}"] = {
+        "max_abs_err": err_c, "p99_abs_err": p99_c, "ms": ms, "runs_ms": runs,
+        "phase_ms": phase_ms, "keygen_s": keygen_s, "resident_bytes": resident,
+        "key_bytes": kb, "galois_keys": len(keys.gk.keys), "pieces": pieces,
+        "launches": launches, "profile": boot_prof,
+        "plain_device_ms_by_step": steps, "kernels": shapes,
+        "seconds": time.perf_counter() - t0}
+    del ctx, sk, keys, ct, out, fargs, dd, k0, k1
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1001,9 +1388,13 @@ def run(dev) -> int:
         dev, card, check_ntt, time_ntt, errs)
     for name, recs in tfhe_ntt.items():
         ntt_recs[name] += recs
-    # each kernel's launches on the three paths, each counted from 0 just before its path
+
+    # -- 11-13. bootstrapping --------------------------------------------------------
+    boot_launches, boot_rec = bootstrap_phases(dev, card, errs, gen)
+    # each kernel's launches on the four paths, each counted from 0 just before its path
     ckks_launches = launches
-    launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] for k in launches}
+    launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
+                for k in launches}
     times.update(tfhe_times)
     bounds.update(tfhe_bounds)
 
@@ -1045,7 +1436,8 @@ def run(dev) -> int:
               "chain_ops_per_s": ops_s, "decode_max_abs_err": dec_err,
               "level1_decode_max_abs_err": dec1_err, "fresh_decode_max_abs_err": fresh_err,
               "ckks": ckks_prof, "rotation_launches": rot_launches, "rotation": rot,
-              "tfhe_launches": tfhe_launches, "tfhe": tfhe_tim}
+              "tfhe_launches": tfhe_launches, "tfhe": tfhe_tim,
+              "bootstrap_launches": boot_launches, "bootstrap": boot_rec}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import ckks, ringkit, tfhe, tfhe_int
+from .models import ckks, ckks_boot, ringkit, tfhe, tfhe_int
 from .ops import modmath as mm
 
 
@@ -96,3 +96,24 @@ def tfhe_ciphertext_from_numpy(a, b, variance: float = 0.0, device="cuda"):
 def huint_from_numpy(a, b, variance: float, width: int, count: int, device="cuda"):
     return tfhe_int.HUint(tfhe_ciphertext_from_numpy(a, b, variance, device),
                           int(width), int(count))
+
+
+def boot_keys_from_numpy(gk: dict, rk: dict, cfg: dict, msg_scale: float,
+                         ctos_pieces, stoc_pieces, mult_i, mult_neg_i, device="cuda"):
+    """The reference's BootKeys as the port's: gk as for galois_key_from_numpy;
+    rk {"k0", "k1"}; cfg the BootConfig fields; each piece a dict of its
+    level, n1, giants ((g, babies, uint32 diagonals), ...), pt_scale and
+    depth; mult_i / mult_neg_i the (table, Shoup table) pairs."""
+    def piece(p):
+        return ckks_boot.Piece(
+            level=int(p["level"]), n1=int(p["n1"]), pt_scale=float(p["pt_scale"]),
+            depth=int(p["depth"]),
+            giants=tuple((int(g), tuple(int(b) for b in babies), _t(pts, device))
+                         for g, babies, pts in p["giants"]))
+
+    return ckks_boot.BootKeys(
+        gk=galois_key_from_numpy(gk, device), rk=ks_key_from_numpy(rk["k0"], rk["k1"], device),
+        cfg=ckks_boot.BootConfig(**cfg), msg_scale=float(msg_scale),
+        ctos_pieces=[piece(p) for p in ctos_pieces], stoc_pieces=[piece(p) for p in stoc_pieces],
+        mult_i=tuple(_t(t, device) for t in mult_i),
+        mult_neg_i=tuple(_t(t, device) for t in mult_neg_i))

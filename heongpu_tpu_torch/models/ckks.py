@@ -1,16 +1,21 @@
 """CKKS scheme (port of heongpu_tpu/models/ckks.py): the multiply ->
-relinearize -> rescale path and the rotation path.
+relinearize -> rescale path, the rotation path and the surface that
+bootstrapping calls.
 
-Context, keygen (secret, public, relinearization, Galois, switching keys),
-host encoder, encrypt / decrypt, the leveled arithmetic, rotations,
-conjugation, key switching, hoisted rotations and monomial products, on one
-torch device.  Ciphertexts live in the NTT domain over the level's prime
-prefix, exactly as in the reference, and every op returns the reference's
-residues.  On a CUDA context every NTT runs K1, every keyswitch of one poly
-(relinearize, apply_galois, rotate, conjugate, switch_key) runs the fused
-core K5, and hoisting runs K1 and K2 (base conversion, key MAC); the tensor
-product, the Galois gathers, the divide-by-P stages, rescale and the encrypt
-pass are plain torch.
+Context, keygen (secret, public, relinearization and Galois keys at a level
+basis, switching keys), the device encoder (float64 special FFT, exact RNS
+reduction; exact constants; coefficient mode) with the host oracles,
+encrypt / decrypt, the leveled arithmetic, rotations, conjugation, key
+switching, hoisted rotations and monomial products, on one torch device.
+Ciphertexts live in the NTT domain over the level's prime prefix, exactly as
+in the reference, and every op returns the reference's residues (the float
+encoder agrees with the reference's df64 one within ±2 per centered
+coefficient at the default scales).  On a CUDA context every NTT runs K1,
+every keyswitch of one poly (relinearize, apply_galois, rotate, conjugate,
+switch_key) runs the fused core K5, and hoisting runs K1 and K2 (base
+conversion, key MAC); the tensor product, the Galois gathers, the
+divide-by-P stages, rescale, the encoder's FFT and the encrypt pass are
+plain torch.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import keyswitch2, polyops, rns
+from ..ops import compose, keyswitch2, polyops, rns, sfft
 from ..ops import modmath as mm
 from ..ops import ntt as nttm
 from ..utils import errors, nt, rng
@@ -246,8 +251,11 @@ def keygen_public(ctx, key, sk) -> PublicKey:
     return ringkit.keygen_public(_ring(ctx), key, sk)
 
 
-def keygen_relin(ctx, key, sk) -> KSKey:
-    return ringkit.keygen_relin(_ring(ctx), key, sk, groups=_groups(ctx))
+def keygen_relin(ctx, key, sk, level: int = 0) -> KSKey:
+    """level > 0: generate at the level basis (usable at levels >= level
+    only; the key's limb extent encodes its generation level)."""
+    return ringkit.keygen_relin(_ring_at(ctx, level), key, _sk_at(ctx, sk, level),
+                                groups=_groups(ctx, level))
 
 
 def keygen_galois(ctx, key, sk, steps=None, max_shift: int = 8, elts=None,
@@ -288,7 +296,8 @@ class Plaintext:
 
 
 # =========================================================================
-# Encoder (canonical embedding — host float64 numpy path)
+# Encoder (canonical embedding): the float64 device path, and the host
+# numpy / big-int oracles
 # =========================================================================
 
 @lru_cache(maxsize=None)
@@ -302,6 +311,13 @@ def _slot_eval_nat(n: int) -> np.ndarray:
         out[j] = (g5 - 1) // 2
         g5 = g5 * 5 % m2
     return out
+
+
+def _slots(ctx: CkksContext, values) -> np.ndarray:
+    z = np.zeros(ctx.n // 2, np.complex128)
+    v = np.asarray(values)
+    z[: v.size] = v.ravel()
+    return z
 
 
 def _embed_coeffs_from_slots(ctx: CkksContext, z: np.ndarray) -> np.ndarray:
@@ -342,20 +358,17 @@ def coeffs_to_rns(a: np.ndarray, primes) -> np.ndarray:
 
 def encode_host(ctx: CkksContext, values, scale: Optional[float] = None,
                 level: int = 0) -> Plaintext:
-    """Host float64 path (numpy FFT + int64/bigint RNS), then the forward
-    NTT on the context's device."""
+    """Host float64 oracle (numpy FFT + int64/bigint RNS), then the forward
+    NTT on the context's device; equal to the reference's encode_host."""
     scale = float(scale or ctx.default_scale)
-    z = np.zeros(ctx.n // 2, np.complex128)
-    v = np.asarray(values)
-    z[: v.size] = v
-    a = _embed_coeffs_from_slots(ctx, z) * scale
+    a = _embed_coeffs_from_slots(ctx, _slots(ctx, values)) * scale
     res = coeffs_to_rns(a, ctx.q_primes[:ctx.active(level)])
     m = nttm.ntt_fwd(mm.u32_to_i32(res).to(ctx.device), ctx.ntt_q(level))
     return Plaintext(m, level, scale)
 
 
 def decode_host(ctx: CkksContext, pt: Plaintext) -> np.ndarray:
-    """Host big-int path: inverse NTT on the device, CRT and the inverse
+    """Host big-int oracle: inverse NTT on the device, CRT and the inverse
     embedding on the host."""
     ka = ctx.active(pt.level)
     coeffs = nttm.ntt_inv(pt.m, ctx.ntt_q(pt.level)).cpu().numpy().view(np.uint32)
@@ -371,17 +384,103 @@ def decode_host(ctx: CkksContext, pt: Plaintext) -> np.ndarray:
     return _slots_from_embed_coeffs(ctx, a)
 
 
+@lru_cache(maxsize=None)
+def _sfft_tabs(n: int, device) -> sfft.SfftTables:
+    return sfft.build_tables(n, device)
+
+
+@lru_cache(maxsize=None)
+def _compose_tabs(primes: tuple, device) -> compose.SmallComposeTables:
+    return compose.build_tables(primes, device)
+
+
+def _rns_from_f64(a, primes):
+    """float64 coefficients (..., n) -> (..., L, n) int32 residues: round
+    half to even, the exact int64 value (|a| < 2^63; above 2^53 a float64 is
+    an integer already), then reduced per prime."""
+    c = torch.round(a).to(mm.I64)
+    p = torch.tensor([int(q) for q in primes], dtype=mm.I64, device=a.device)
+    return torch.remainder(c[..., None, :], p[:, None]).to(mm.I32)
+
+
+def encode_batch_rns(n: int, zs: np.ndarray, primes, scale: float, device="cuda") -> torch.Tensor:
+    """Batch device encode: (B, n/2) complex slots -> (B, L, n) int32 residues
+    (coefficient domain), the float64 special FFT on `device`.  Used by the
+    bootstrapping diagonal builder."""
+    zs = np.asarray(zs, np.complex128)
+    zr = torch.from_numpy(np.ascontiguousarray(zs.real)).to(device)
+    zi = torch.from_numpy(np.ascontiguousarray(zs.imag)).to(device)
+    a = sfft.embed_from_slots(zr, zi, _sfft_tabs(n, torch.device(device)))
+    return _rns_from_f64(a * float(scale), primes)
+
+
 def encode(ctx: CkksContext, values, scale: Optional[float] = None,
            level: int = 0) -> Plaintext:
-    """values: up to n/2 real or complex numbers.  Until the device encoder
-    is ported this is the host float64 path, `encode_host`."""
-    return encode_host(ctx, values, scale, level)
+    """values: up to n/2 real or complex numbers.  Runs on the context's
+    device (float64 special FFT + exact RNS reduction, ops/sfft.py);
+    encode_host is the numpy oracle."""
+    scale = float(scale or ctx.default_scale)
+    primes = ctx.q_primes[:ctx.active(level)]
+    res = encode_batch_rns(ctx.n, _slots(ctx, values)[None], primes, scale, ctx.device)[0]
+    return Plaintext(nttm.ntt_fwd(res, ctx.ntt_q(level)), level, scale)
+
+
+def encode_const(ctx: CkksContext, value, scale: float, level: int = 0) -> Plaintext:
+    """Exact encode of a constant (all slots equal `value`): the embedding of
+    a constant vector is m(X) = a + b·X^(n/2) with a = round(Re v · S),
+    b = round(Im v · S) (X^(n/2) evaluates to i on every slot of the 5^j
+    half-orbit).  The integers are computed exactly (Fraction), so the
+    residues are exact at any scale, past the float64 mantissa too (the
+    composite-scale EvalMod's working scale drifts beyond 2^52)."""
+    from fractions import Fraction
+    v = complex(value)
+    S = Fraction(scale)
+    a = int(round(Fraction(v.real) * S))
+    b = int(round(Fraction(v.imag) * S))
+    primes = [int(q) for q in ctx.q_primes[:ctx.active(level)]]
+    m = torch.zeros((len(primes), ctx.n), dtype=mm.I32, device=ctx.device)
+    m[:, 0] = mm.u32_to_i32([a % q for q in primes]).to(ctx.device)
+    if b:
+        m[:, ctx.n // 2] = mm.u32_to_i32([b % q for q in primes]).to(ctx.device)
+    m_ntt = nttm.ntt_fwd(m, ctx.ntt_q(level))
+    return Plaintext(m_ntt, level, float(scale))
+
+
+def encode_coeff(ctx: CkksContext, values, scale: Optional[float] = None,
+                 level: int = 0) -> Plaintext:
+    """Coefficient-mode encoding: up to n real values placed directly as
+    polynomial coefficients (no canonical embedding), rounded and reduced on
+    the context's device."""
+    scale = float(scale or ctx.default_scale)
+    v = np.zeros(ctx.n, np.float64)
+    vv = np.asarray(values, np.float64)
+    v[: vv.size] = vv.ravel()
+    a = torch.from_numpy(v).to(ctx.device) * scale
+    res = _rns_from_f64(a, ctx.q_primes[:ctx.active(level)])
+    return Plaintext(nttm.ntt_fwd(res, ctx.ntt_q(level)), level, scale)
+
+
+def _centered_coeffs(ctx: CkksContext, pt: Plaintext):
+    """The exact centered coefficients of pt as float64 (n,) on the device
+    (|value| < 2^59)."""
+    primes = tuple(int(q) for q in ctx.q_primes[:ctx.active(pt.level)])
+    coeffs = nttm.ntt_inv(pt.m, ctx.ntt_q(pt.level))
+    return compose.compose_small(coeffs, _compose_tabs(primes, ctx.device))
+
+
+def decode_coeff(ctx: CkksContext, pt: Plaintext) -> np.ndarray:
+    """Coefficient-mode decoding: n real coefficient values (the gamma-pair
+    compose on the device)."""
+    return (_centered_coeffs(ctx, pt) * (1.0 / pt.scale)).cpu().numpy()
 
 
 def decode(ctx: CkksContext, pt: Plaintext) -> np.ndarray:
-    """Plaintext -> n/2 complex slot values.  Until the device decoder is
-    ported this is the host big-int path, `decode_host`."""
-    return decode_host(ctx, pt)
+    """Plaintext -> n/2 complex slot values.  Runs on the context's device
+    (exact gamma-pair compose + float64 special FFT); decode_host is the
+    big-int host oracle."""
+    a = _centered_coeffs(ctx, pt) * (1.0 / pt.scale)
+    zr, zi = sfft.slots_from_embed(a, _sfft_tabs(ctx.n, ctx.device))
+    return zr.cpu().numpy() + 1j * zi.cpu().numpy()
 
 
 # =========================================================================
@@ -470,6 +569,13 @@ def add_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
     return Ciphertext(torch.cat([c0[None], a.c[1:]]), a.size, a.level, a.scale)
 
 
+def sub_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    errors.check_level(a.level, pt.level, "ciphertext/plaintext")
+    errors.check_scale(a.scale, pt.scale)
+    c0 = mm.sub_mod(a.c[0], pt.m, _p_at(ctx, a.level))
+    return Ciphertext(torch.cat([c0[None], a.c[1:]]), a.size, a.level, a.scale)
+
+
 def multiply(ctx, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     """(2,k,n) x (2,k,n) -> (3,k,n): the NTT-domain tensor product."""
     errors.check_level(a.level, b.level)
@@ -515,6 +621,11 @@ def mod_drop(ctx, a: Ciphertext, levels: int = 1) -> Ciphertext:
     ka = ctx.active(a.level)
     return Ciphertext(a.c[:, : ka - levels, :].contiguous(), a.size,
                       a.level + levels, a.scale)
+
+
+def mod_drop_plain(ctx, pt: Plaintext, levels: int = 1) -> Plaintext:
+    ka = ctx.active(pt.level)
+    return Plaintext(pt.m[: ka - levels].contiguous(), pt.level + levels, pt.scale)
 
 
 # =========================================================================
@@ -706,3 +817,16 @@ def multiply_by_monomial(ctx, a: Ciphertext, tables) -> Ciphertext:
 def multiply_power_of_x(ctx: CkksContext, a: Ciphertext, k: int) -> Ciphertext:
     """a · X^k, an NTT-domain pointwise product with the monomial tables."""
     return multiply_by_monomial(ctx, a, monomial_mult_tables(ctx, k))
+
+
+def print_parameters(ctx: CkksContext):
+    """The reference's HEContext::print_parameters analog."""
+    total = sum(int(q).bit_length() for q in ctx.q_primes)
+    ptotal = sum(int(q).bit_length() for q in ctx.p_primes)
+    print(f"/ CKKS parameters\n"
+          f"| poly_modulus_degree: {ctx.n} (slots: {ctx.n // 2})\n"
+          f"| coeff_modulus: {total}+{ptotal} bits "
+          f"({ctx.k} Q + {len(ctx.p_primes)} P primes)\n"
+          f"| default scale: 2^{int(math.log2(ctx.default_scale))}\n"
+          f"| keyswitching: METHOD_{ctx.ks_type} (alpha={ctx.alpha})\n"
+          f"\\ security: {ctx.sec_level}")

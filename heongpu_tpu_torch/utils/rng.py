@@ -19,6 +19,8 @@ continue it.  Samplers return int32 residues of shape (L,) + shape on
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -50,6 +52,18 @@ def is_drbg(key) -> bool:
 def split(key, num: int = 2):
     """Both sources are streams: every sub-key is the source itself."""
     return (key,) * num
+
+
+def fold_in(key, data: int):
+    """A sub-source for `data`.  A DRBG passes through unchanged, as in the
+    reference, so a DRBG key set is drawn in the reference's order.  A
+    torch.Generator gives a new generator on its device, seeded from a hash
+    of its current state and `data`; the parent's state does not move."""
+    if is_drbg(key):
+        return key
+    state = key.get_state().cpu().numpy().tobytes()
+    digest = hashlib.sha256(state + int(data).to_bytes(8, "little", signed=True)).digest()
+    return new_generator(int.from_bytes(digest[:8], "little") >> 1, key.device)
 
 
 def _numel(shape) -> int:

@@ -153,6 +153,25 @@ def test_keyswitch_fused_kernel_matches_plain(dev, n, ka, alpha, p_count):
     _equal(got, tksf.keyswitch2_fused_core_plain(z, mat, k0, k1, tb, lvl.groups))
 
 
+@pytest.mark.parametrize("ka,alpha,p_count", [(48, 4, 6), (46, 4, 6), (8, 4, 6)])
+def test_keyswitch_fused_kernel_bootstrap_shapes(dev, ka, alpha, p_count):
+    """K5 at the depth-48 bootstrap's shapes (N=2^13): 54-, 52- and 14-limb
+    QP bases, 12 and 2 digits, against the plain core."""
+    test_keyswitch_fused_kernel_matches_plain(dev, 8192, ka, alpha, p_count)
+
+
+@pytest.mark.parametrize("d,limbs", [(12, 54), (12, 52), (2, 14)])
+def test_mac_keys_kernel_bootstrap_shapes(dev, d, limbs):
+    """K2 mac_keys over the bootstrap's hoisted digits (N=2^13)."""
+    test_mac_keys_kernel_matches_plain(dev, d, limbs, 8192)
+
+
+@pytest.mark.parametrize("k_in,k_out", [(4, 54), (4, 50), (2, 12)])
+def test_base_conv_kernel_bootstrap_shapes(dev, k_in, k_out):
+    """K2 base_conv of one digit group into the bootstrap's Q̃ bases (N=2^13)."""
+    test_base_conv_kernel_matches_plain(dev, k_in, k_out, 8192)
+
+
 def test_keyswitch_fused_wrapper_rejects_bad_input(dev):
     n, ka, alpha = 256, 4, 2
     primes = tnt.generate_ntt_primes(29, ka + alpha, n)
