@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import ckks, ckks_boot, ringkit, tfhe, tfhe_int
+from .models import ckks, ckks_boot, ckks_boot_ext, ringkit, tfhe, tfhe_int
 from .ops import modmath as mm
 
 
@@ -98,22 +98,44 @@ def huint_from_numpy(a, b, variance: float, width: int, count: int, device="cuda
                           int(width), int(count))
 
 
+def _boot_piece(p, device):
+    return ckks_boot.Piece(
+        level=int(p["level"]), n1=int(p["n1"]), pt_scale=float(p["pt_scale"]),
+        depth=int(p["depth"]),
+        giants=tuple((int(g), tuple(int(b) for b in babies), _t(pts, device))
+                     for g, babies, pts in p["giants"]))
+
+
 def boot_keys_from_numpy(gk: dict, rk: dict, cfg: dict, msg_scale: float,
                          ctos_pieces, stoc_pieces, mult_i, mult_neg_i, device="cuda"):
     """The reference's BootKeys as the port's: gk as for galois_key_from_numpy;
     rk {"k0", "k1"}; cfg the BootConfig fields; each piece a dict of its
     level, n1, giants ((g, babies, uint32 diagonals), ...), pt_scale and
     depth; mult_i / mult_neg_i the (table, Shoup table) pairs."""
-    def piece(p):
-        return ckks_boot.Piece(
-            level=int(p["level"]), n1=int(p["n1"]), pt_scale=float(p["pt_scale"]),
-            depth=int(p["depth"]),
-            giants=tuple((int(g), tuple(int(b) for b in babies), _t(pts, device))
-                         for g, babies, pts in p["giants"]))
-
     return ckks_boot.BootKeys(
         gk=galois_key_from_numpy(gk, device), rk=ks_key_from_numpy(rk["k0"], rk["k1"], device),
         cfg=ckks_boot.BootConfig(**cfg), msg_scale=float(msg_scale),
-        ctos_pieces=[piece(p) for p in ctos_pieces], stoc_pieces=[piece(p) for p in stoc_pieces],
+        ctos_pieces=[_boot_piece(p, device) for p in ctos_pieces],
+        stoc_pieces=[_boot_piece(p, device) for p in stoc_pieces],
         mult_i=tuple(_t(t, device) for t in mult_i),
         mult_neg_i=tuple(_t(t, device) for t in mult_neg_i))
+
+
+def boot_keys_v2_from_numpy(gk: dict, rk: dict, cfg: dict, msg_scale: float, variant: str,
+                            ctos_pieces, stoc_pieces, mult_i, mult_neg_i, cos_coeffs,
+                            swk_to_sparse: dict = None, swk_to_dense: dict = None,
+                            device="cuda"):
+    """The reference's BootKeysV2 as the port's: the fields as for
+    boot_keys_from_numpy, cfg the BootConfigV2 fields, cos_coeffs the
+    power-basis cosine coefficients, and each switch key {"k0", "k1"} or
+    None (no sparse-secret switching)."""
+    swk = lambda k: None if k is None else ks_key_from_numpy(k["k0"], k["k1"], device)
+    return ckks_boot_ext.BootKeysV2(
+        gk=galois_key_from_numpy(gk, device), rk=ks_key_from_numpy(rk["k0"], rk["k1"], device),
+        cfg=ckks_boot_ext.BootConfigV2(**cfg), msg_scale=float(msg_scale), variant=str(variant),
+        ctos_pieces=[_boot_piece(p, device) for p in ctos_pieces],
+        stoc_pieces=[_boot_piece(p, device) for p in stoc_pieces],
+        mult_i=tuple(_t(t, device) for t in mult_i),
+        mult_neg_i=tuple(_t(t, device) for t in mult_neg_i),
+        cos_coeffs=np.asarray(cos_coeffs, np.float64),
+        swk_to_sparse=swk(swk_to_sparse), swk_to_dense=swk(swk_to_dense))

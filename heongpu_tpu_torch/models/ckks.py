@@ -590,9 +590,15 @@ def multiply(ctx, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     return Ciphertext(c, 3, a.level, a.scale * b.scale)
 
 
+def _mul_plain_core(ctx, c, m, level):
+    """c · m pointwise over the level's limbs (NTT domain): the exact product
+    mod each prime, as the reference's Montgomery route gives it."""
+    return mm.mul_mod(c, m[None], _p_at(ctx, level))
+
+
 def multiply_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
     errors.check_level(a.level, pt.level, "ciphertext/plaintext")
-    return Ciphertext(mm.mul_mod(a.c, pt.m[None], _p_at(ctx, a.level)),
+    return Ciphertext(_mul_plain_core(ctx, a.c, pt.m, a.level),
                       a.size, a.level, a.scale * pt.scale)
 
 

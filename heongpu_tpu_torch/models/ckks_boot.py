@@ -208,18 +208,25 @@ def encode_diags_ntt_mont(ctx: CkksContext, vecs, level: int, scale: float) -> t
     return buf
 
 
+def _encoder(ctx: CkksContext):
+    """_build_piece's batch_encode: the diagonals on the context's device."""
+    return lambda vecs, level, scale: encode_diags_ntt_mont(ctx, vecs, level, scale)
+
+
 def _build_piece(ctx: CkksContext, diags: Dict[int, np.ndarray], level: int,
-                 depth: int = 1) -> Piece:
-    """The diagonals encoded at the product of the `depth` primes the piece's
-    rescales drop, so the piece leaves the ciphertext's scale as it was."""
+                 batch_encode, scale_mult: float = 1.0, depth: int = 1) -> Piece:
+    """The diagonals encoded by batch_encode(vecs, level, scale) at
+    scale_mult times the product of the `depth` primes the piece's rescales
+    drop: the piece multiplies the ciphertext's scale by scale_mult (1: it
+    leaves it as it was)."""
     ns = ctx.n // 2
     ka = ctx.active(level)
-    scale = 1.0
+    scale = scale_mult
     for j in range(depth):
         scale *= float(ctx.q_primes[ka - 1 - j])
     n1, groups = _bsgs_split(list(diags), ns)
     vecs = [np.roll(diags[(g + b) % ns], g) for g, babies in groups.items() for b in babies]
-    pts_all = encode_diags_ntt_mont(ctx, vecs, level, scale)
+    pts_all = batch_encode(vecs, level, scale)
     giants = []
     idx = 0
     for g, babies in groups.items():
@@ -228,25 +235,33 @@ def _build_piece(ctx: CkksContext, diags: Dict[int, np.ndarray], level: int,
     return Piece(level=level, n1=n1, giants=tuple(giants), pt_scale=scale, depth=depth)
 
 
-def _check_uncompressed(compress_keys: bool):
+def _check_ported(compress_keys: bool, limb_align: int):
     if compress_keys:
         raise errors.ParameterError(
             "compress_keys=True needs seed-expanded keys, which are not ported yet "
             "(ROADMAP.md, queue 1: seeded keys)")
+    if limb_align != 1:
+        raise errors.ParameterError(
+            "limb_align != 1 aligns keys for sharding on a device mesh, which is not "
+            "ported yet (ROADMAP.md, queue 1: the parallel slice)")
 
 
 def leveled_boot_keys(ctx, key, sk, pieces, aux_lvl: int, compress_keys: bool = False,
-                      inv_form: bool = False):
+                      extra_steps_lvl: dict = None, include_giants: bool = True,
+                      limb_align: int = 1, inv_form: bool = False):
     """Galois + relin keys for a bootstrap pipeline, each rotation step's key
-    (babies and giants) generated at its shallowest use level
-    (ckks.keygen_galois(level=)), so the deep StoC steps get small keys; conj
-    and relin at aux_lvl.  The draw order is the reference's: level groups
-    in order, then conj, then relin."""
-    _check_uncompressed(compress_keys)
-    step_lvl = {}
+    generated at its shallowest use level (ckks.keygen_galois(level=)), so
+    the deep StoC steps get small keys; conj and relin at aux_lvl.
+    extra_steps_lvl {step: level} adds steps (less-key mode's power-of-two
+    chain); include_giants=False leaves the giant steps to compose from it.
+    The draw order is the reference's: level groups in order, then conj,
+    then relin.  limb_align != 1 (keys cut to shard evenly on a limb mesh)
+    raises errors.ParameterError."""
+    _check_ported(compress_keys, limb_align)
+    step_lvl = dict(extra_steps_lvl or {})
     for pc in pieces:
         for g, babies, _ in pc.giants:
-            for step in (g, *babies):
+            for step in (g, *babies) if include_giants else babies:
                 if step:
                     step_lvl[step] = min(step_lvl.get(step, 1 << 30), pc.level)
     by_level = {}
@@ -267,12 +282,14 @@ def leveled_boot_keys(ctx, key, sk, pieces, aux_lvl: int, compress_keys: bool = 
 
 def generate_bootstrap_keys(ctx: CkksContext, key, sk: ringkit.SecretKey,
                             cfg: BootConfig = None, msg_scale: float = None,
-                            compress_keys: bool = False, inv_form: bool = False) -> BootKeys:
+                            compress_keys: bool = False, limb_align: int = 1,
+                            inv_form: bool = False) -> BootKeys:
     """Rotation / conj / relin keys and the factored-DFT plaintext tables with
-    the EvalMod constants folded in.  compress_keys=True raises
-    errors.ParameterError (seed-expanded keys are not ported)."""
+    the EvalMod constants folded in.  compress_keys=True and limb_align != 1
+    raise errors.ParameterError (seed-expanded keys and keys aligned for a
+    limb mesh are not ported)."""
     cfg = cfg or BootConfig()
-    _check_uncompressed(compress_keys)
+    _check_ported(compress_keys, limb_align)
     if msg_scale is None:
         # a composite base needs a composite scale (see BootConfig.base_count)
         msg_scale = float(ctx.default_scale) ** cfg.base_count
@@ -302,12 +319,13 @@ def generate_bootstrap_keys(ctx: CkksContext, key, sk: ringkit.SecretKey,
             f"(CtoS {p1}x{pd} + EvalMod {stoc_level0 - p1 * pd} + "
             f"StoC {len(stoc_mats)}x{pd} + {bc} base limb(s)); "
             f"context has {ctx.k}")
-    ctos_pieces = [_build_piece(ctx, m, i * pd, depth=pd) for i, m in enumerate(ctos_mats)]
-    stoc_pieces = [_build_piece(ctx, m, stoc_level0 + i * pd, depth=pd)
+    enc = _encoder(ctx)
+    ctos_pieces = [_build_piece(ctx, m, i * pd, enc, depth=pd) for i, m in enumerate(ctos_mats)]
+    stoc_pieces = [_build_piece(ctx, m, stoc_level0 + i * pd, enc, depth=pd)
                    for i, m in enumerate(stoc_mats)]
     # conj is first used at ctos_finish (level p1*pd); relin at EvalMod
     gk, rk = leveled_boot_keys(ctx, key, sk, ctos_pieces + stoc_pieces, aux_lvl=p1 * pd,
-                               inv_form=inv_form)
+                               limb_align=limb_align, inv_form=inv_form)
     return BootKeys(gk=gk, rk=rk, cfg=cfg, msg_scale=msg_scale,
                     ctos_pieces=ctos_pieces, stoc_pieces=stoc_pieces,
                     mult_i=ckks.monomial_mult_tables(ctx, n // 2),
@@ -342,11 +360,15 @@ def mod_raise(ctx: CkksContext, ct: Ciphertext, base_count: int = 1) -> Cipherte
 
 
 def rotate_exact(ctx, ct, gk: ringkit.GaloisKey, step: int):
-    """Rotation by `step` with the key made for exactly that step (one
-    keyswitch)."""
+    """Rotation by `step`: one keyswitch with the key made for exactly that
+    step, or, where there is none (less-key mode), composed from the
+    power-of-two chain (ckks.rotate)."""
     if step % (ctx.n // 2) == 0:
         return ct
-    return ckks.apply_galois(ctx, ct, gk.keys[polyops.steps_to_galois_elt(step, ctx.n)])
+    g = polyops.steps_to_galois_elt(step, ctx.n)
+    if g in gk.keys:
+        return ckks.apply_galois(ctx, ct, gk.keys[g])
+    return ckks.rotate(ctx, ct, gk, step)
 
 
 def matvec_piece(ctx: CkksContext, ct: Ciphertext, piece: Piece,
