@@ -36,6 +36,10 @@ regular v2 with the sparse-secret switch around the mod-raise, and regular
 v2 in less-key mode (giant rotations composed from the power-of-two chain),
 one key set at a time.
 
+Then drives BFV at N=2^15 on the entry point's default chain (29 Q primes,
+Method I) and at the repo's BFV bench shape (Method II), and CKKS with
+Method-I keyswitching (the default of make_context) at N=2^16.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -124,6 +128,26 @@ Phases (each raises on failure, so the script exits non-zero):
      around StoC, the raise, CtoS and EvalMod) with the device busy time and
      idle share, the regular run's device time by step, and the less-key
      set's Galois keys and time against the standard set's.
+ 15. BFV: (a) N=256, both methods, every entry point and BFV gate on the card
+     against the CPU plain path (keys and randomness from one DRBG seed on
+     both sides: identical residues, noise budgets within 1e-6); (b) N=2^15
+     on bfv.make_context's default chain (Method I), launches counted from 0
+     (ntt_fwd, ntt_inv, mac_keys and base_conv must launch), every launch at a
+     new shape held against plain: mult -> relin -> decrypt exactly the
+     slot-wise product mod t, rotate_rows by 1, rotate_columns and hoisted
+     rotations exact, the noise budget > 0, mult+relin and a rotation equal
+     to the CPU plain path's; per-op medians (CUDA events), device busy and
+     idle share, key bytes; (c) N=2^15 at benchmarks/benchmark_bfv.py's shape
+     (eight 29-bit Q primes, Method II, alpha 2: K5 in the coefficient
+     domain), counted and held as in (b), its rows (encrypt, add, multiply,
+     mult+relin, rotate, decrypt) as medians of 10 calls;
+ 16. CKKS with Method-I keyswitching at the main path's shape (twelve 29-bit
+     Q primes, one special prime, 12 digits), counted from 0 (ntt_fwd,
+     ntt_inv and mac_keys must launch) and held against plain:
+     mult -> relin -> rescale within TOL_DECODE, rotate by 1, rotate_hoisted
+     and conjugate within TOL_DECODE + 4·keyswitch_noise; mult+relin+rescale,
+     rotate and rotate_hoisted equal to the CPU plain path's; per-op medians,
+     device busy and idle share, key bytes.
 The kernels' max_abs_err is the worst over every comparison above.  Each
 kernel's bound_ms is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and a lower count of its int32
@@ -170,13 +194,13 @@ GAUSS_SIGMA = 3.2
 # primes: 54-limb QP bases, 12 digits; Taylor degree 9, six squarings, the
 # arcsine term, pieces at the composite scale), at N=2^13 and N=2^16, hw 32.
 BOOT_Q_BITS = [29, 29] + [28] * 46
-BOOT_CTX = dict(scale_bits=28, alpha=4, p_count=6)
+BOOT_CTX = dict(scale_bits=28, ks_type="II", alpha=4, p_count=6)
 BOOT_CFG = dict(taylor_degree=9, exp_squarings=6, base_count=2, arcsin_order=1, piece_depth=2,
                 ctos_pieces=2, stoc_pieces=2)
 BOOT_HW = 32
 # and the N=256 precision configuration of tests/test_ckks_boot.py
 PREC_Q_BITS = [29, 29] + [28] * 42
-PREC_CTX = dict(scale_bits=28, alpha=2, p_count=4)
+PREC_CTX = dict(scale_bits=28, ks_type="II", alpha=2, p_count=4)
 PREC_CFG = dict(taylor_degree=9, exp_squarings=5, base_count=2, arcsin_order=1, piece_depth=2)
 # The reference's regression limit for the precision configuration (it
 # measured 4.42e-6 at N=256 and 1.7e-7 at N=2^13, depth 48), held at every
@@ -446,13 +470,14 @@ def keyswitch_noise(ctx) -> float:
     error e_j.  That is a low-frequency error: evaluated at the slot root
     nearest X = 1 it is about (2N/π)·σ·sqrt(N).  So one keyswitch adds about
     sqrt(d)·(alpha/2)·(D/P)·(2N/π)·σ·sqrt(N)/scale to the worst slot: it grows
-    as N^1.5 and falls with more special primes (p_count > alpha)."""
-    lvl = ctx.ks2[0]
-    d_max = max(np.prod([float(ctx.q_primes[i]) for i in g]) for g in lvl.groups)
+    as N^1.5 and falls with more special primes (p_count > alpha).  Method I
+    is the case alpha = 1: d = k digits, each of one prime."""
+    groups = ctx.ks2[0].groups if ctx.ks2 else tuple((i,) for i in range(ctx.k))  # Method I
+    d_max = max(np.prod([float(ctx.q_primes[i]) for i in g]) for g in groups)
     p_prod = float(np.prod([float(p) for p in ctx.p_primes]))
-    alpha = max(len(g) for g in lvl.groups)
+    alpha = max(len(g) for g in groups)
     n = ctx.n
-    return (len(lvl.groups) ** 0.5 * alpha / 2 * d_max / p_prod * 2 * n / np.pi
+    return (len(groups) ** 0.5 * alpha / 2 * d_max / p_prod * 2 * n / np.pi
             * GAUSS_SIGMA * n ** 0.5 / ctx.default_scale)
 
 
@@ -479,6 +504,29 @@ def staged_route(ctx, level, args):
                           for cv, g in zip(ctx.ks2[level].convs, groups)])
     acc = rns.mac_keys_cuda(nttm.ntt_cuda(digits, tb, False), k0, k1, ctx.base_qp_at(level))
     return nttm.ntt_cuda(acc, tb, True)
+
+
+def time_kernels(shapes, where, n, card, errs):
+    """{kernel: its record} for shapes {kernel: (kernel fn, plain fn, shape
+    text, (bound ms, bound_by))}: each held against its plain version (the
+    worst error into errs), then timed (CUDA events, and the device ms of
+    the hand-written kernels from torch.profiler) beside the plain version
+    and the bound."""
+    out = {}
+    for name, (kf, pf, what, bnd) in shapes.items():
+        e = max_err(kf(), pf())
+        errs[name] = max(errs[name], e)
+        if e:
+            raise AssertionError(f"{name} disagrees with its plain version at {what}")
+        ms_k = cuda_ms(kf, reps=10)
+        ms_p = cuda_ms(pf, reps=2, warm=1)
+        own = own_kernels(device_idle_share(kf, 5)[3])
+        dev_ms = sum(own.values()) if own else None
+        out[name] = {"shape": what, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"time {name} at {where} {what} (N={n}): kernel {ms_k:.4f} ms, device "
+              f"{fmt_ms(dev_ms)} ms, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    return out
 
 
 def keyswitch_bound(args):
@@ -563,9 +611,7 @@ def rotation_phase(ctx, cctx, sk, pk, card, errs):
     # on copies of the same key and ciphertext
     t0 = time.perf_counter()
     one = gk.keys[elt(1)]
-    cone = ringkit.GaloisKeyOne(*(t.cpu() for t in (one.k0, one.k1, one.perm_coeff_src,
-                                                    one.perm_coeff_neg, one.perm_ntt)),
-                                one.galois_elt, one.inv_form)
+    cone = key_to(one, "cpu")
     cct = ckks.Ciphertext(ct.c.cpu(), ct.size, ct.level, ct.scale)
     same = (torch.equal(ckks.rotate(ctx, ct, gk, 1).c.cpu(),
                         ckks.rotate(cctx, cct, ringkit.GaloisKey({one.galois_elt: cone}), 1).c)
@@ -784,19 +830,27 @@ def centered_coeffs_host(ctx, pt) -> np.ndarray:
     return np.array([float(v - Q) if v >= Q // 2 else float(v) for v in acc])
 
 
+def key_to(kk, dev):
+    """A KSKey or GaloisKeyOne with its tensors on `dev`."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(kk, **{f.name: getattr(kk, f.name).to(dev)
+                                      for f in dataclasses.fields(kk)
+                                      if isinstance(getattr(kk, f.name), torch.Tensor)})
+
+
 def boot_keys_to(keys, dev):
     """A BootKeys or BootKeysV2 with every tensor on `dev`."""
     import dataclasses
     from heongpu_tpu_torch.models import ckks_boot, ringkit
-    one = lambda k: ringkit.GaloisKeyOne(*(t.to(dev) for t in (
-        k.k0, k.k1, k.perm_coeff_src, k.perm_coeff_neg, k.perm_ntt)), k.galois_elt, k.inv_form)
     piece = lambda p: ckks_boot.Piece(p.level, p.n1, tuple((g, b, pts.to(dev))
                                                           for g, b, pts in p.giants),
                                       p.pt_scale, p.depth)
-    ks = lambda k: None if k is None else ringkit.KSKey(k.k0.to(dev), k.k1.to(dev))
+    ks = lambda k: None if k is None else key_to(k, dev)
     swk = {f: ks(getattr(keys, f)) for f in ("swk_to_sparse", "swk_to_dense") if hasattr(keys, f)}
     return dataclasses.replace(
-        keys, gk=ringkit.GaloisKey({e: one(k) for e, k in keys.gk.keys.items()}), rk=ks(keys.rk),
+        keys, gk=ringkit.GaloisKey({e: key_to(k, dev) for e, k in keys.gk.keys.items()}),
+        rk=ks(keys.rk),
         ctos_pieces=[piece(p) for p in keys.ctos_pieces],
         stoc_pieces=[piece(p) for p in keys.stoc_pieces],
         mult_i=tuple(t.to(dev) for t in keys.mult_i),
@@ -1101,19 +1155,7 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
                            bound(nbytes(zc, conv.mat_mont, dd[0, :k_out], conv.obase.p,
                                         conv.obase.pinv, conv.obase.mu),
                                  k_in * k_out * n_full * MAC_OPS + k_out * n_full * FOLD_OPS))
-    for name, (kf, pf, what, bnd) in shapes.items():
-        e = max_err(kf(), pf())
-        errs[name] = max(errs[name], e)
-        if e:
-            raise AssertionError(f"{name} disagrees with its plain version at {what}")
-        ms_k = cuda_ms(kf, reps=10)
-        ms_p = cuda_ms(pf, reps=2, warm=1)
-        own = own_kernels(device_idle_share(kf, 5)[3])
-        dev_ms = sum(own.values()) if own else None
-        shapes[name] = {"shape": what, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
-                        "bound_ms": bnd[0], "bound_by": bnd[1]}
-        print(f"time {name} at the bootstrap's {what} (N={n_full}): kernel {ms_k:.4f} ms, device "
-              f"{fmt_ms(dev_ms)} ms, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    shapes = time_kernels(shapes, "the bootstrap's", n_full, card, errs)
     rec[f"n{n_full}"] = {
         "max_abs_err": err_c, "p99_abs_err": p99_c, "ms": ms, "runs_ms": runs,
         "phase_ms": phase_ms, "keygen_s": keygen_s, "resident_bytes": resident,
@@ -1131,7 +1173,7 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
 # BootConfigV2(24, 5, 12), 2 + 2 pieces, secret hw 16) with Method II, alpha 4
 # and six special primes (p_count > alpha for keyswitch headroom at N=2^16).
 V2_Q_BITS = [29] + [28] * 18
-V2_CTX = dict(scale_bits=28, alpha=4, p_count=6)
+V2_CTX = dict(scale_bits=28, ks_type="II", alpha=4, p_count=6)
 V2_CFG = dict(cos_degree=24, double_angles=5, K=12)
 V2_HW = 16
 V2_SPARSE_HW = 16       # the sparse run: a dense secret (hw N/2), a temporary key of hw 16
@@ -1240,7 +1282,7 @@ def v2_cpu_checks(ctx, n):
     from heongpu_tpu_torch.ops import polyops
     cctx = ckks.make_context(n, V2_Q_BITS, device="cpu", **V2_CTX)
     cpu = lambda c: ckks.Ciphertext(c.c.cpu(), c.size, c.level, c.scale)
-    ks = lambda k: None if k is None else ringkit.KSKey(k.k0.cpu(), k.k1.cpu())
+    ks = lambda k: None if k is None else key_to(k, "cpu")
     bare = lambda keys, **kw: dataclasses.replace(keys, **{   # only what a check reads
         "gk": ringkit.GaloisKey({}), "rk": ks(keys.rk), "ctos_pieces": [], "stoc_pieces": [],
         "mult_i": (), "mult_neg_i": (), "swk_to_sparse": None, "swk_to_dense": None, **kw})
@@ -1269,9 +1311,8 @@ def v2_cpu_checks(ctx, n):
                    if polyops.steps_to_galois_elt(g, n) not in keys.gk.keys)
         c = ckks.mod_drop(ctx, ext._raise_maybe_sparse(ctx, inputs[0], keys), piece.level)
         pow2 = {polyops.steps_to_galois_elt(1 << j, n) for j in range(n.bit_length())}
-        gk = ringkit.GaloisKey({e: ringkit.GaloisKeyOne(*(t.cpu() for t in (
-            k.k0, k.k1, k.perm_coeff_src, k.perm_coeff_neg, k.perm_ntt)), k.galois_elt,
-            k.inv_form) for e, k in keys.gk.keys.items() if e in pow2})
+        gk = ringkit.GaloisKey({e: key_to(k, "cpu") for e, k in keys.gk.keys.items()
+                                if e in pow2})
         return held(f"less-key mode's giant rotation by {step} (composed)",
                     ckks_boot.rotate_exact(ctx, c, keys.gk, step),
                     ckks_boot.rotate_exact(cctx, cpu(c), gk, step))
@@ -1454,6 +1495,379 @@ def bootstrap_v2_phases(dev, card, errs, n_small=256, n_full=1 << 16):
           f"({lkm['key_bytes']['galois'] / std['key_bytes']['galois'] - 1:+.1%}); "
           f"{lkm['ms']:.3f} ms against {std['ms']:.3f} ms ({lkm['ms'] / std['ms'] - 1:+.1%}) [{card}]")
     return total, rec
+
+
+# BFV (phase 15): the entry point's default chain at N=2^15
+# (params.default_coeff_modulus at tc128: 29 Q primes of 29 bits and one 30-bit
+# special prime, Method I, Bsk of 31 + 1 primes) and the repo's own BFV bench
+# shape (benchmarks/benchmark_bfv.py:28-33,72: eight 29-bit Q primes, Method II
+# with alpha 2), t = plain_modulus_for(N, 20) on both.
+BFV_N = 1 << 15
+BFV_T_BITS = 20
+BFV_BENCH_Q_BITS = [29] * 8
+BFV_BENCH_ALPHA = 2
+BFV_SMALL_Q_BITS = [29] * 4     # the N=256 card-against-CPU run, both methods
+
+
+def median_ms(fn, reps: int = 7, warm: int = 2):
+    """Median ms of one call of fn over `reps` calls, CUDA events around each."""
+    import torch
+    for _ in range(warm):
+        fn()
+    runs = []
+    for _ in range(reps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        runs.append(ev[0].elapsed_time(ev[1]))
+    return float(np.median(runs))
+
+
+def bfv_entry_points(ctx, m1, m2):
+    """{name: tensor} of every BFV entry point (and the BFV gates) on ctx's
+    device, keys and randomness from one DRBG seed (host draws, so a CPU and
+    a card context get the same numbers), and the two noise budgets."""
+    from heongpu_tpu_torch.models import bfv, logic
+    from heongpu_tpu_torch.ops import polyops
+    from heongpu_tpu_torch.utils import rng
+    d = rng.new_drbg(b"chip_smoke phase 15 BFV entropy.")
+    sk = bfv.keygen_secret(ctx, d)
+    pk = bfv.keygen_public(ctx, d, sk)
+    rk = bfv.keygen_relin(ctx, d, sk)
+    gk = bfv.keygen_galois(ctx, d, sk, steps=[1, 2])
+    gki = bfv.keygen_galois(ctx, d, sk, steps=[1], inv_form=True)
+    swk = bfv.keygen_switch(ctx, d, sk, bfv.keygen_secret(ctx, d))
+    p1, p2 = bfv.encode(ctx, m1), bfv.encode(ctx, m2)
+    c1, c2 = bfv.encrypt(ctx, pk, p1, d), bfv.encrypt(ctx, pk, p2, d)
+    prod = bfv.multiply(ctx, c1, c2)
+    rel = bfv.relinearize(ctx, prod, rk)
+    g1 = polyops.steps_to_galois_elt(1, ctx.n)
+    h = bfv.hoist(ctx, c1)
+    out = {"keygen_secret": sk.s_ntt_mont_qp, "keygen_public": pk.pk0, "keygen_relin": rk.k0,
+           "keygen_galois": gk.keys[g1].k0, "keygen_galois_inv": gki.keys[g1].k0,
+           "keygen_switch": swk.k0, "encode": p1, "encrypt": c1.c, "multiply": prod.c,
+           "relinearize": rel.c, "decrypt": bfv.decrypt(ctx, sk, rel),
+           "add": bfv.add(ctx, c1, c2).c, "sub": bfv.sub(ctx, c1, c2).c,
+           "negate": bfv.negate(ctx, c1).c, "add_plain": bfv.add_plain(ctx, c1, p2).c,
+           "sub_plain": bfv.sub_plain(ctx, c1, p2).c,
+           "multiply_plain": bfv.multiply_plain(ctx, c1, p2).c,
+           "apply_galois_inv": bfv.apply_galois(ctx, c1, gki.keys[g1]).c,
+           "rotate_rows_3": bfv.rotate_rows(ctx, c1, gk, 3).c,
+           "rotate_columns": bfv.rotate_columns(ctx, c1, gk).c,
+           "switch_key": bfv.switch_key(ctx, c1, swk).c,
+           "multiply_power_of_x": bfv.multiply_power_of_x(ctx, c1, 5).c,
+           "transform_to_ntt": bfv.transform_to_ntt(ctx, c1).c,
+           "transform_from_ntt": bfv.transform_from_ntt(ctx, bfv.transform_to_ntt(ctx, c2)).c,
+           "hoist": h, "rotate_rows_hoisted": bfv.rotate_rows_hoisted(ctx, c1, h, gk.keys[g1]).c,
+           "rotate_rows_hoisted_inv": bfv.rotate_rows_hoisted(ctx, c1, h, gki.keys[g1]).c}
+    for gate in ("and", "or", "xor", "nand", "nor", "xnor"):
+        out[f"bfv_{gate}"] = getattr(logic, f"bfv_{gate}")(ctx, c1, c2, rk).c
+    out["bfv_not"] = logic.bfv_not(ctx, c1).c
+    for gate in ("and", "or", "xor"):
+        out[f"bfv_{gate}_plain"] = getattr(logic, f"bfv_{gate}_plain")(ctx, c1, p2).c
+    return out, (bfv.noise_budget(ctx, sk, c1), bfv.noise_budget(ctx, sk, rel))
+
+
+def bfv_phases(dev, card, errs, time_ntt, gen, n_small=256, n_full=BFV_N):
+    """Phase 15: BFV.  (a) n_small, both methods: every entry point on the
+    card against the CPU plain path, keys from one DRBG seed on both sides,
+    identical residues; (b) n_full on the entry point's default chain
+    (Method I): mult -> relin -> decrypt exact, rotate_rows by 1,
+    rotate_columns and hoisted rotations exact, noise budget > 0, every launch
+    at a new shape held against plain, the card's residues of mult+relin and
+    of a rotation equal to the CPU plain path's, per-op times, device busy
+    and idle share, key bytes; K1 and K2 timed at (b)'s new shapes against
+    their plain versions and bounds; (c) n_full at the repo's BFV bench
+    shape (Method II: K5 in the coefficient domain): the bench's rows, each
+    the median of several calls (CUDA events).  Returns (the launches of
+    (b)'s and (c)'s main-path runs, summed; record; K1's timing records)."""
+    import torch
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import bfv
+    from heongpu_tpu_torch.ops import polyops, rns
+    from heongpu_tpu_torch.utils import params, rng
+    rec = {}
+
+    # -- 15. (a) card against CPU at n_small, both methods ---------------------
+    t0 = time.perf_counter()
+    t_small = params.plain_modulus_for(n_small, BFV_T_BITS)
+    r = np.random.default_rng(15)
+    m1, m2 = r.integers(0, t_small, n_small), r.integers(0, t_small, n_small)
+    same_all, budgets = {}, {}
+    for method in (dict(ks_type="I"), dict(ks_type="II", alpha=2)):
+        mk = lambda d: bfv.make_context(n_small, t_small, q_bits=BFV_SMALL_Q_BITS, device=d,
+                                        **method)
+        cpu_out, cpu_nb = bfv_entry_points(mk("cpu"), m1, m2)
+        with held_against_plain(f"BFV N={n_small} Method {method['ks_type']}", errs):
+            out, nb = bfv_entry_points(mk(dev), m1, m2)
+            torch.cuda.synchronize()
+        diff = [k for k in out if not torch.equal(out[k].cpu(), cpu_out[k])]
+        same_all[method["ks_type"]] = not diff
+        budgets[method["ks_type"]] = (nb, cpu_nb)
+        print(f"BFV (a) N={n_small} Method {method['ks_type']}: {len(out)} entry-point outputs "
+              f"on the card identical to the CPU plain path's: {not diff} {diff or ''}; noise "
+              f"budget fresh / after mult+relin {nb[0]:.6f} / {nb[1]:.6f} bits (CPU "
+              f"{cpu_nb[0]:.6f} / {cpu_nb[1]:.6f})")
+        if diff or max(abs(a - b) for a, b in zip(nb, cpu_nb)) > 1e-6:
+            raise AssertionError(f"BFV (a) Method {method['ks_type']}: card and CPU differ: {diff}")
+    rec[f"n{n_small}"] = {"identical_to_cpu": same_all, "noise_budget": budgets,
+                          "seconds": time.perf_counter() - t0}
+
+    # -- 15. (b) the default chain at n_full, Method I -------------------------------
+    t0 = time.perf_counter()
+    t = params.plain_modulus_for(n_full, BFV_T_BITS)
+    ctx = bfv.make_context(n_full, t, device=dev)
+    cctx = bfv.make_context(n_full, t, device="cpu")
+    print(f"BFV (b) context N={n_full}: {ctx.k} Q primes of "
+          f"{sorted({q.bit_length() for q in ctx.q_primes})} bits, {len(ctx.p_primes)} special, "
+          f"Method {ctx.ks_type}, Bsk {ctx.bsk_k} + 1, t={t}; {time.perf_counter() - t0:.1f} s")
+    g = rng.new_generator(151, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sk = bfv.keygen_secret(ctx, g)
+    pk = bfv.keygen_public(ctx, g, sk)
+    rk = bfv.keygen_relin(ctx, g, sk)
+    gk = bfv.keygen_galois(ctx, g, sk, steps=[1])     # step 1 and conj, as the bench makes them
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t1
+    key_bytes = {"relin": nbytes(rk.k0, rk.k1),
+                 "galois": sum(nbytes(k.k0, k.k1) for k in gk.keys.values())}
+    half = n_full // 2
+    r = np.random.default_rng(16)
+    m1, m2 = r.integers(0, t, n_full), r.integers(0, t, n_full)
+    g1 = polyops.steps_to_galois_elt(1, n_full)
+    rows = lambda m, s: np.concatenate([np.roll(m[:half], -s), np.roll(m[half:], -s)])
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with held_against_plain(f"BFV N={n_full} default chain", errs):
+        c1 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m1), g)
+        c2 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m2), g)
+        rel = bfv.relinearize(ctx, bfv.multiply(ctx, c1, c2), rk)
+        dec = {"mult_relin": (bfv.decode(ctx, bfv.decrypt(ctx, sk, rel)), m1 * m2 % t)}
+        rot = bfv.rotate_rows(ctx, c1, gk, 1)
+        dec["rotate_rows_1"] = (bfv.decode(ctx, bfv.decrypt(ctx, sk, rot)), rows(m1, 1))
+        dec["rotate_columns"] = (bfv.decode(ctx, bfv.decrypt(ctx, sk, bfv.rotate_columns(
+            ctx, c1, gk))), np.concatenate([m1[half:], m1[:half]]))
+        h = bfv.hoist(ctx, c2)
+        dec["rotate_rows_hoisted_1"] = (bfv.decode(ctx, bfv.decrypt(
+            ctx, sk, bfv.rotate_rows_hoisted(ctx, c2, h, gk.keys[g1]))), rows(m2, 1))
+        dec["rotate_columns_hoisted"] = (bfv.decode(ctx, bfv.decrypt(
+            ctx, sk, bfv.rotate_rows_hoisted(ctx, c2, h, gk.keys[polyops.GALOIS_CONJ]))),
+            np.concatenate([m2[half:], m2[:half]]))
+        torch.cuda.synchronize()
+        launches_b = dict(kernels.launches)
+    wrong = [k for k, (got, want) in dec.items() if not np.array_equal(got, want)]
+    nb = (bfv.noise_budget(ctx, sk, c1), bfv.noise_budget(ctx, sk, rel))
+    print(f"BFV (b) main path N={n_full}: {time.perf_counter() - t1:.1f} s, launches "
+          f"{launches_b}; exact: {sorted(set(dec) - set(wrong))}, wrong: {wrong or 'none'}; "
+          f"noise budget fresh {nb[0]:.3f}, after mult+relin {nb[1]:.3f} bits; keygen "
+          f"{keygen_s:.2f} s, relin key {key_bytes['relin'] / 1e6:.1f} MB, {len(gk.keys)} "
+          f"Galois keys {key_bytes['galois'] / 1e6:.1f} MB [{card}]")
+    if wrong or not nb[1] > 0:
+        raise AssertionError(f"BFV (b): {wrong} decrypt wrong or the noise budget is spent")
+    require_launched("BFV default chain", launches_b, ("ntt_fwd", "ntt_inv", "mac_keys",
+                                                       "base_conv"))
+    # mult+relin and one rotation on the CPU plain path, on copies of keys and inputs
+    t1 = time.perf_counter()
+    cpu = lambda c: bfv.Ciphertext(c.c.cpu(), c.size, c.in_ntt)
+    same = (torch.equal(bfv.relinearize(cctx, bfv.multiply(cctx, cpu(c1), cpu(c2)),
+                                        key_to(rk, "cpu")).c, rel.c.cpu())
+            and torch.equal(bfv.apply_galois(cctx, cpu(c1), key_to(gk.keys[g1], "cpu")).c,
+                            rot.c.cpu()))
+    print(f"BFV (b) mult+relin and rotate_rows by 1 on the CPU plain path identical to the "
+          f"card's: {same} ({time.perf_counter() - t1:.1f} s)")
+    if not same:
+        raise AssertionError("BFV (b): CPU and card residues differ")
+    prod = bfv.multiply(ctx, c1, c2)
+    ops = {"encrypt": lambda: bfv.encrypt(ctx, pk, bfv.encode(ctx, m1), g),
+           "multiply": lambda: bfv.multiply(ctx, c1, c2),
+           "relinearize": lambda: bfv.relinearize(ctx, prod, rk),
+           "mult_relin": lambda: bfv.relinearize(ctx, bfv.multiply(ctx, c1, c2), rk),
+           "rotate_rows_1": lambda: bfv.rotate_rows(ctx, c1, gk, 1),
+           "rotate_columns": lambda: bfv.rotate_columns(ctx, c1, gk),
+           "hoist": lambda: bfv.hoist(ctx, c2),
+           "rotate_rows_hoisted": lambda: bfv.rotate_rows_hoisted(ctx, c2, h, gk.keys[g1]),
+           "decrypt": lambda: bfv.decrypt(ctx, sk, rel)}
+    ms_b = {k: median_ms(fn) for k, fn in ops.items()}
+    print(f"time BFV (b) N={n_full} default chain, ms (median of 7): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms_b.items()) + f" [{card}]")
+    prof_b = {}
+    print_profile(f"BFV mult+relin N={n_full} default chain", ops["mult_relin"], 3, card, prof_b,
+                  "mult_relin")
+    print_profile(f"BFV rotate_rows by 1 N={n_full} default chain", ops["rotate_rows_1"], 3, card,
+                  prof_b, "rotate_rows_1")
+    # K1 over the Method-I digits, K2 mac_keys over 29 digits, base_conv q -> Bsk
+    ntt_recs = {"ntt_fwd": [time_ntt(ctx.ntt_qp, ctx.k, False)]}
+    bq, conv = ctx.base_qp, ctx.conv_q_bsk
+    nd, nl = ctx.k, len(bq)
+    dd, k0, k1 = (rand_residues(list(ctx.qp_primes) * nd, (nd * nl, n_full), gen, dev)
+                  .view(nd, nl, n_full) for _ in range(3))
+    k_in, k_out = conv.mat_mont.shape
+    zc = rand_residues(list(ctx.q_primes) * 2, (2 * k_in, n_full), gen, dev).view(2, k_in, n_full)
+    kern = time_kernels({
+        "mac_keys": (lambda: rns.mac_keys_cuda(dd, k0, k1, bq),
+                     lambda: mac_keys_plain(dd, k0, k1, bq), f"{tuple(dd.shape)}",
+                     bound(nbytes(dd, k0, k1, dd[:2], bq.p, bq.pinv, bq.mu),
+                           2 * dd.numel() * MAC_OPS + 2 * nl * n_full * FOLD_OPS)),
+        "base_conv": (lambda: rns.base_conv_cuda(zc, conv.mat_mont, conv.obase),
+                      lambda: base_conv_plain(zc, conv.mat_mont, conv.obase),
+                      f"2 x {k_in} -> {k_out}",
+                      bound(nbytes(zc, conv.mat_mont, conv.obase.p, conv.obase.pinv,
+                                   conv.obase.mu) + 2 * k_out * n_full * 4,
+                            2 * k_in * k_out * n_full * MAC_OPS + 2 * k_out * n_full * FOLD_OPS))},
+        "BFV's default-chain", n_full, card, errs)
+    del dd, k0, k1, zc
+    rec[f"n{n_full}_default"] = {
+        "q_primes": ctx.k, "p_primes": len(ctx.p_primes), "bsk": ctx.bsk_k + 1, "t": t,
+        "launches": launches_b, "noise_budget": nb, "keygen_s": keygen_s,
+        "key_bytes": key_bytes, "identical_to_cpu": same, "ms": ms_b, "profile": prof_b,
+        "kernels": kern, "seconds": time.perf_counter() - t0}
+    del ctx, cctx, sk, pk, rk, gk, c1, c2, rel, rot, h, prod, ops
+    torch.cuda.empty_cache()
+
+    # -- 15. (c) the bench shape at n_full, Method II ----------------------------------
+    t0 = time.perf_counter()
+    ctx = bfv.make_context(n_full, t, q_bits=BFV_BENCH_Q_BITS, ks_type="II",
+                           alpha=BFV_BENCH_ALPHA, device=dev)
+    g = rng.new_generator(152, dev)
+    sk = bfv.keygen_secret(ctx, g)
+    pk = bfv.keygen_public(ctx, g, sk)
+    rk = bfv.keygen_relin(ctx, g, sk)
+    gk = bfv.keygen_galois(ctx, g, sk, steps=[1])
+    g1k = gk.keys[g1]
+    key_bytes = {"relin": nbytes(rk.k0, rk.k1),
+                 "galois": sum(nbytes(k.k0, k.k1) for k in gk.keys.values())}
+    kernels.reset_launches()
+    with held_against_plain(f"BFV N={n_full} bench shape", errs):
+        c1 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m1), g)
+        c2 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m2), g)
+        dec = {"add": (bfv.add(ctx, c1, c2), (m1 + m2) % t),
+               "mult_relin": (bfv.relinearize(ctx, bfv.multiply(ctx, c1, c2), rk), m1 * m2 % t),
+               "rotate": (bfv.apply_galois(ctx, c1, g1k), rows(m1, 1))}
+        dec = {k: (bfv.decode(ctx, bfv.decrypt(ctx, sk, c)), w) for k, (c, w) in dec.items()}
+        torch.cuda.synchronize()
+        launches_c = dict(kernels.launches)
+    wrong = [k for k, (got, want) in dec.items() if not np.array_equal(got, want)]
+    print(f"BFV (c) bench shape N={n_full}, {len(BFV_BENCH_Q_BITS)} x 29-bit Q, Method II alpha "
+          f"{BFV_BENCH_ALPHA} ({len(ctx.ks2[0].groups)} digits over {len(ctx.qp_primes)} limbs): "
+          f"launches {launches_c}; wrong: {wrong or 'none'}; relin key "
+          f"{key_bytes['relin'] / 1e6:.1f} MB, {len(gk.keys)} Galois keys "
+          f"{key_bytes['galois'] / 1e6:.1f} MB [{card}]")
+    if wrong:
+        raise AssertionError(f"BFV (c): {wrong} decrypt wrong")
+    require_launched("BFV bench shape", launches_c, ("ntt_fwd", "ntt_inv", "base_conv",
+                                                     "keyswitch2_fused"))
+    rows_c = {"encrypt": lambda: bfv.encrypt(ctx, pk, bfv.encode(ctx, m1), g),
+              "add": lambda: bfv.add(ctx, c1, c2),
+              "multiply": lambda: bfv.multiply(ctx, c1, c2),
+              "mult_relin": lambda: bfv.relinearize(ctx, bfv.multiply(ctx, c1, c2), rk),
+              "rotate": lambda: bfv.apply_galois(ctx, c1, g1k),
+              "decrypt": lambda: bfv.decrypt(ctx, sk, c1)}
+    ms_c = {k: median_ms(fn, reps=10) for k, fn in rows_c.items()}
+    print(f"time BFV (c) bench shape N={n_full}, ms (median of 10): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms_c.items()) + f" [{card}]")
+    prof_c = {}
+    print_profile(f"BFV mult+relin N={n_full} bench shape", rows_c["mult_relin"], 3, card, prof_c,
+                  "mult_relin")
+    rec[f"n{n_full}_bench"] = {"launches": launches_c, "ms": ms_c, "profile": prof_c,
+                               "key_bytes": key_bytes, "seconds": time.perf_counter() - t0}
+    del ctx, sk, pk, rk, gk, g1k, c1, c2
+    torch.cuda.empty_cache()
+    return {k: launches_b[k] + launches_c[k] for k in launches_b}, rec, ntt_recs
+
+
+def ckks_method1_phase(dev, card, errs, n=N):
+    """Phase 16: CKKS with Method-I keyswitching (the default of make_context)
+    at the main path's shape: mult -> relin -> rescale, rotate by 1,
+    rotate_hoisted and conjugate, every launch at a new shape held against
+    plain, launches counted from 0 (ntt_fwd, ntt_inv and mac_keys must
+    launch; a Method-I keyswitch runs no K5), decode within TOL_DECODE (+
+    4·keyswitch_noise for one keyswitch), the card's residues equal to the
+    CPU plain path's; per-op times, device busy and idle share, key bytes.
+    Returns (launches of the path; record)."""
+    import torch
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks
+    from heongpu_tpu_torch.ops import polyops
+    from heongpu_tpu_torch.utils import rng
+    t0 = time.perf_counter()
+    ctx = ckks.make_context(n, Q_BITS, device=dev)
+    if ctx.ks_type != "I":
+        raise AssertionError("make_context with no ks_type did not build a Method-I context")
+    g = rng.new_generator(161, dev)
+    sk = ckks.keygen_secret(ctx, g)
+    pk = ckks.keygen_public(ctx, g, sk)
+    rk = ckks.keygen_relin(ctx, g, sk)
+    gk = ckks.keygen_galois(ctx, g, sk, steps=[1])
+    torch.cuda.synchronize()
+    key_bytes = {"relin": nbytes(rk.k0, rk.k1),
+                 "galois": sum(nbytes(k.k0, k.k1) for k in gk.keys.values())}
+    g1 = polyops.steps_to_galois_elt(1, n)
+    z = np.linspace(-1.0, 1.0, n // 2)
+    ks_noise = keyswitch_noise(ctx)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with held_against_plain(f"CKKS Method I N={n}", errs):
+        ct1 = ckks.encrypt(ctx, pk, ckks.encode(ctx, z), g)
+        ct2 = ckks.encrypt(ctx, pk, ckks.encode(ctx, z[::-1].copy()), g)
+        relin = ckks.relinearize(ctx, ckks.multiply(ctx, ct1, ct2), rk)
+        res = ckks.rescale(ctx, relin)
+        rot = ckks.rotate(ctx, ct1, gk, 1)
+        d = ckks.hoist(ctx, ct1)
+        hrot = ckks.rotate_hoisted(ctx, ct1, d, gk.keys[g1])
+        conj = ckks.conjugate(ctx, ct1, gk)
+        dec = lambda c: ckks.decode(ctx, ckks.decrypt(ctx, sk, c))
+        got = {"mult_relin_rescale": (dec(res), z * z[::-1], 0), "rotate_1": (dec(rot), np.roll(z, -1), 1),
+               "rotate_hoisted_1": (dec(hrot), np.roll(z, -1), 1), "conjugate": (dec(conj), z, 1)}
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    errs_dec = {k: float(np.abs(v - w).max()) for k, (v, w, _) in got.items()}
+    limit = {k: TOL_DECODE + 4 * ks * ks_noise for k, (_, _, ks) in got.items()}
+    print(f"CKKS Method I N={n}, {len(Q_BITS)} x 29-bit Q, {len(ctx.p_primes)} special prime, "
+          f"{ctx.k} digits: {time.perf_counter() - t1:.1f} s, launches {launches}; decode "
+          "errors " + ", ".join(f"{k} {e:.3e} (limit {limit[k]:.3e})" for k, e in errs_dec.items())
+          + f"; keyswitch_noise {ks_noise:.3e}; relin key {key_bytes['relin'] / 1e6:.1f} MB, "
+          f"{len(gk.keys)} Galois keys {key_bytes['galois'] / 1e6:.1f} MB [{card}]")
+    require_launched("CKKS Method I", launches, ("ntt_fwd", "ntt_inv", "mac_keys"))
+    if not all(np.isfinite(v).all() and v.shape == (n // 2,) for v, _, _ in got.values()):
+        raise AssertionError("CKKS Method I: decode gave non-finite values or the wrong shape")
+    if any(e > limit[k] for k, e in errs_dec.items()):
+        raise AssertionError(f"CKKS Method I: a decode error above its limit: {errs_dec}")
+    t1 = time.perf_counter()
+    cctx = ckks.make_context(n, Q_BITS, device="cpu")
+    cpu = lambda c: ckks.Ciphertext(c.c.cpu(), c.size, c.level, c.scale)
+    cg1 = key_to(gk.keys[g1], "cpu")
+    c_relin = ckks.relinearize(cctx, ckks.multiply(cctx, cpu(ct1), cpu(ct2)), key_to(rk, "cpu"))
+    same = (torch.equal(c_relin.c, relin.c.cpu())
+            and torch.equal(ckks.rescale(cctx, c_relin).c, res.c.cpu())
+            and torch.equal(ckks.apply_galois(cctx, cpu(ct1), cg1).c, rot.c.cpu())
+            and torch.equal(ckks.rotate_hoisted(cctx, cpu(ct1), ckks.hoist(cctx, cpu(ct1)), cg1).c,
+                            hrot.c.cpu()))
+    print(f"CKKS Method I mult+relin+rescale, rotate and rotate_hoisted on the CPU plain path "
+          f"identical to the card's: {same} ({time.perf_counter() - t1:.1f} s)")
+    if not same:
+        raise AssertionError("CKKS Method I: CPU and card residues differ")
+    ops = {"mult_relin": lambda: ckks.relinearize(ctx, ckks.multiply(ctx, ct1, ct2), rk),
+           "rescale": lambda: ckks.rescale(ctx, relin),
+           "rotate_1": lambda: ckks.rotate(ctx, ct1, gk, 1),
+           "hoist": lambda: ckks.hoist(ctx, ct1),
+           "rotate_hoisted": lambda: ckks.rotate_hoisted(ctx, ct1, d, gk.keys[g1]),
+           "conjugate": lambda: ckks.conjugate(ctx, ct1, gk)}
+    ms = {k: median_ms(fn) for k, fn in ops.items()}
+    print(f"time CKKS Method I N={n}, ms (median of 7): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]")
+    prof = {}
+    print_profile(f"CKKS Method I mult+relin N={n}", ops["mult_relin"], 5, card, prof, "mult_relin")
+    print_profile(f"CKKS Method I rotate by 1 N={n}", ops["rotate_1"], 5, card, prof, "rotate_1")
+    rec = {"launches": launches, "decode_max_abs_err": errs_dec, "keyswitch_noise": ks_noise,
+           "key_bytes": key_bytes, "identical_to_cpu": same, "ms": ms, "profile": prof,
+           "seconds": time.perf_counter() - t0}
+    del ctx, cctx, sk, pk, rk, gk, ct1, ct2, relin, res, rot, d, hrot, conj
+    torch.cuda.empty_cache()
+    return launches, rec
 
 
 def main() -> int:
@@ -1761,10 +2175,16 @@ def run(dev) -> int:
     boot_launches, boot_rec = bootstrap_phases(dev, card, errs, gen)
     # -- 14. the bootstrapping variants -----------------------------------------------
     v2_launches, v2_rec = bootstrap_v2_phases(dev, card, errs)
-    # each kernel's launches on the five paths, each run counted from 0 just before it
+    # -- 15. BFV ----------------------------------------------------------------------
+    bfv_launches, bfv_rec, bfv_ntt = bfv_phases(dev, card, errs, time_ntt, gen)
+    for name, recs in bfv_ntt.items():
+        ntt_recs[name] += recs
+    # -- 16. CKKS with Method-I keyswitching ------------------------------------------
+    m1_launches, m1_rec = ckks_method1_phase(dev, card, errs)
+    # each kernel's launches on the seven paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
-                + v2_launches[k] for k in launches}
+                + v2_launches[k] + bfv_launches[k] + m1_launches[k] for k in launches}
     times.update(tfhe_times)
     bounds.update(tfhe_bounds)
 
@@ -1808,7 +2228,9 @@ def run(dev) -> int:
               "ckks": ckks_prof, "rotation_launches": rot_launches, "rotation": rot,
               "tfhe_launches": tfhe_launches, "tfhe": tfhe_tim,
               "bootstrap_launches": boot_launches, "bootstrap": boot_rec,
-              "bootstrap_v2_launches": v2_launches, "bootstrap_v2": v2_rec}
+              "bootstrap_v2_launches": v2_launches, "bootstrap_v2": v2_rec,
+              "bfv_launches": bfv_launches, "bfv": bfv_rec,
+              "ckks_method1_launches": m1_launches, "ckks_method1": m1_rec}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """Carry keys, ciphertexts and plaintexts between the JAX package and the
 port as numpy arrays.
 
-Keys and ciphertexts are this system's state: the reference's objects,
+Keys and ciphertexts are this system's state: the reference's objects
+(BFV keys are ringkit's key types, so the key converters carry them too),
 handed over as numpy uint32 arrays (`np.asarray` of its jax arrays), become
 the port's int32 tensors with the same bits, and `to_numpy` turns them back.
 Contexts are not carried: both packages rebuild theirs from the same
@@ -15,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import ckks, ckks_boot, ckks_boot_ext, ringkit, tfhe, tfhe_int
+from .models import bfv, ckks, ckks_boot, ckks_boot_ext, ringkit, tfhe, tfhe_int
 from .ops import modmath as mm
 
 
@@ -75,6 +76,15 @@ def ciphertext_from_numpy(c, size: int, level: int, scale: float, device="cuda")
 
 def plaintext_from_numpy(m, level: int, scale: float, device="cuda"):
     return ckks.Plaintext(_t(m, device), int(level), float(scale))
+
+
+def bfv_ciphertext_from_numpy(c, size: int, in_ntt: bool = False, device="cuda"):
+    return bfv.Ciphertext(_t(c, device), int(size), bool(in_ntt))
+
+
+def bfv_plaintext_from_numpy(m, device="cuda"):
+    """A BFV plaintext poly (n,) mod t."""
+    return _t(m, device)
 
 
 def tfhe_secret_key_from_numpy(lwe, rlwe, device="cuda"):

@@ -10,11 +10,14 @@ switching, hoisted rotations and monomial products, on one torch device.
 Ciphertexts live in the NTT domain over the level's prime prefix, exactly as
 in the reference, and every op returns the reference's residues (the float
 encoder agrees with the reference's df64 one within ±2 per centered
-coefficient at the default scales).  On a CUDA context every NTT runs K1,
-every keyswitch of one poly (relinearize, apply_galois, rotate, conjugate,
-switch_key) runs the fused core K5, and hoisting runs K1 and K2 (base
-conversion, key MAC); the tensor product, the Galois gathers, the
-divide-by-P stages, rescale, the encoder's FFT and the encrypt pass are
+coefficient at the default scales).  Keyswitching is Method I (one digit per
+Q prime, one special prime; the default, as in the reference) or Method II
+(digits of alpha grouped primes).  On a CUDA context every NTT runs K1; a
+Method-II keyswitch of one poly (relinearize, apply_galois, rotate,
+conjugate, switch_key) runs the fused core K5, a Method-I one runs K1 and K2
+(the key MAC), and hoisting runs K1 and K2 (base conversion under Method
+II, key MAC); the tensor product, the digit broadcast, the Galois gathers,
+the divide-by-P stages, rescale, the encoder's FFT and the encrypt pass are
 plain torch.
 """
 
@@ -54,8 +57,8 @@ class CkksContext:
     p_primes: tuple
     default_scale: float
     sec_level: str
-    ks_type: str                # "II" (hybrid groups) on the ported path
-    alpha: int                  # primes per keyswitch digit
+    ks_type: str                # "I" (one digit per Q prime) or "II" (hybrid groups)
+    alpha: int                  # primes per keyswitch digit (1 under Method I)
     device: torch.device
     ntt_qp: nttm.NttTables      # over Q ∪ P
     base_q: rns.Base
@@ -63,7 +66,7 @@ class CkksContext:
     div_p: rns.DivRoundLastq    # ÷(first special) at level 0
     div_level: tuple            # div_level[lvl] = DivRoundLastq dropping q_{k-1-lvl}
     enc_div: tuple              # sequential ÷p stages over Q·P (encrypt path)
-    ks2: tuple                  # per-level keyswitch2.KS2Level (Method II)
+    ks2: tuple                  # per-level keyswitch2.KS2Level (Method II; empty under I)
     slot_to_ntt: torch.Tensor   # (n/2,) int32: NTT index of slot j
     conj_perm: torch.Tensor     # (n,) NTT-domain permutation for conjugation
     _level_tables: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -117,24 +120,25 @@ def make_context(n: int,
                  q_bits: Sequence[int],
                  scale_bits: Optional[int] = None,
                  sec_level: str = "none",
-                 ks_type: str = "II",
+                 ks_type: str = "I",
                  alpha: int = 1,
                  p_count: Optional[int] = None,
                  pair_scale_primes: Optional[bool] = None,
                  device="cuda") -> CkksContext:
     """q_bits: bit sizes of the Q chain, q_bits[0] = base prime; `p_count`
-    (default alpha) 30-bit special primes are appended; keyswitching is
-    Method II with digits of `alpha` grouped primes.  Prime generation,
+    (default alpha) 30-bit special primes are appended.  ks_type "I" (the
+    default) keyswitches with one digit per Q prime and forces alpha to 1;
+    "II" uses digits of `alpha` grouped primes.  Prime generation,
     scale-prime pairing and default_scale follow the reference exactly (see
     heongpu_tpu/models/ckks.py:make_context); every table is built on
     `device`."""
-    if ks_type != "II":
-        raise errors.ParameterError(
-            "the port runs Method-II keyswitching (ks_type='II'); Method I "
-            "is not ported yet")
+    if ks_type not in ("I", "II"):
+        raise errors.ParameterError(f"unknown keyswitching method {ks_type!r} (use 'I' or 'II')")
     device = torch.device(device)
     logn = n.bit_length() - 1
     assert 1 << logn == n
+    if ks_type == "I":
+        alpha = 1
     if p_count is None:
         p_count = alpha
     assert p_count >= alpha, "P must cover at least one digit"
@@ -193,8 +197,10 @@ def make_context(n: int,
     for sp in reversed(p_primes):
         remaining = remaining[:-1]
         enc_div.append(rns.DivRoundLastq.build(remaining, sp, device))
-    ks2 = tuple(keyswitch2.build_ks2_level(q_primes, p_primes, k - lvl, alpha, device)
-                for lvl in range(k))
+    ks2 = ()
+    if ks_type == "II":
+        ks2 = tuple(keyswitch2.build_ks2_level(q_primes, p_primes, k - lvl, alpha, device)
+                    for lvl in range(k))
 
     return CkksContext(
         n=n, logn=logn, k=k,
@@ -238,6 +244,10 @@ def _sk_at(ctx: CkksContext, sk: SecretKey, level: int) -> SecretKey:
 
 
 def _groups(ctx, level: int = 0):
+    """Method II's digit groups at the level basis; None (one digit per
+    prime) under Method I."""
+    if ctx.ks_type != "II":
+        return None
     ka = ctx.active(level)
     return tuple(tuple(range(j, min(j + ctx.alpha, ka)))
                  for j in range(0, ka, ctx.alpha))
@@ -581,12 +591,7 @@ def multiply(ctx, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     errors.check_level(a.level, b.level)
     errors.check_size(a.size, 2, "multiply")
     errors.check_size(b.size, 2, "multiply")
-    p = _p_at(ctx, a.level)
-    a0, a1 = a.c[0].to(mm.I64), a.c[1].to(mm.I64)
-    b0, b1 = b.c[0].to(mm.I64), b.c[1].to(mm.I64)
-    c = torch.stack([torch.remainder(a0 * b0, p),
-                     torch.remainder(torch.remainder(a0 * b1, p) + a1 * b0, p),
-                     torch.remainder(a1 * b1, p)]).to(mm.I32)
+    c = polyops.tensor_product(a.c, b.c, _p_at(ctx, a.level))
     return Ciphertext(c, 3, a.level, a.scale * b.scale)
 
 
@@ -635,32 +640,42 @@ def mod_drop_plain(ctx, pt: Plaintext, levels: int = 1) -> Plaintext:
 
 
 # =========================================================================
-# Relinearize (Method-II keyswitch)
+# Relinearize (Method-I or Method-II keyswitch)
 # =========================================================================
 
-def _slice_key2(ctx, k_arr, ka: int, d_lvl: int):
-    """Method-II key slice: first d_lvl digits, active Q limbs + all
-    specials (the key's own Q extent is derived from its shape), contiguous
-    as the kernels take it."""
-    k_gen = k_arr.shape[1] - len(ctx.p_primes)
+def _check_key_level(ctx, ka: int, k_gen: int):
+    """A key generated at a deeper level (fewer limbs) than the use level
+    cannot serve it, under either method."""
     if ka > k_gen:
         raise errors.LevelMismatchError(
             f"key generated at a {k_gen}-limb basis used at a level with "
             f"{ka} active limbs; regenerate the key at level <= "
             f"{ctx.k - k_gen}")
-    if ka == k_gen and d_lvl == k_arr.shape[0]:
-        return k_arr
-    return torch.cat([k_arr[:d_lvl, :ka], k_arr[:d_lvl, k_gen:]], dim=1)
+
+
+def _key_slices(ctx, k0, k1, level: int):
+    """Both key halves sliced to the level basis: ceil(ka/alpha) digits (ka
+    under Method I), the active Q limbs and the specials.  The key's own Q
+    extent is read from its shape, so a key made at a deeper level slices
+    the same way."""
+    ka = ctx.active(level)
+    k_gen = k0.shape[1] - len(ctx.p_primes)
+    _check_key_level(ctx, ka, k_gen)
+    d_lvl = -(-ka // ctx.alpha)
+    return (ringkit.slice_key_level(k0, ka, k_gen, d_lvl),
+            ringkit.slice_key_level(k1, ka, k_gen, d_lvl))
 
 
 def _keyswitch_poly(ctx, poly_ntt, k0, k1, level):
     """Keyswitch one NTT-domain poly at `level`; returns (d0, d1) NTT-domain."""
-    ka = ctx.active(level)
-    d_lvl = -(-ka // ctx.alpha)
-    return keyswitch2.keyswitch2(
-        poly_ntt, _slice_key2(ctx, k0, ka, d_lvl), _slice_key2(ctx, k1, ka, d_lvl),
-        ctx.ks2[level], ctx.ntt_qp_at(level), ctx.base_qp_at(level),
-        in_ntt=True, out_ntt=True, ntt_q_level=ctx.ntt_q(level))
+    k0s, k1s = _key_slices(ctx, k0, k1, level)
+    if ctx.ks_type == "II":
+        return keyswitch2.keyswitch2(
+            poly_ntt, k0s, k1s, ctx.ks2[level], ctx.ntt_qp_at(level), ctx.base_qp_at(level),
+            in_ntt=True, out_ntt=True, ntt_q_level=ctx.ntt_q(level))
+    return ringkit.keyswitch_core(
+        poly_ntt, k0s, k1s, ctx.base_qp_at(level), ctx.ntt_qp_at(level), ctx.div_p_at(level),
+        in_ntt=True, out_ntt=True, ntt_q=ctx.ntt_q(level))
 
 
 def relinearize(ctx, a: Ciphertext, rk: KSKey) -> Ciphertext:
@@ -691,26 +706,7 @@ def apply_galois(ctx, a: Ciphertext, gk1: GaloisKeyOne) -> Ciphertext:
 
 def rotate(ctx, a: Ciphertext, gk: GaloisKey, step: int) -> Ciphertext:
     """Rotate slots left by `step` using the stored power-of-two key chain."""
-    n = ctx.n
-    step = step % (n // 2)
-    if step == 0:
-        return a
-    out = a
-    remaining = step
-    for j in reversed(range(16)):
-        sz = 1 << j
-        while remaining >= sz:
-            g = polyops.steps_to_galois_elt(sz, n)
-            if g in gk.keys:
-                out = apply_galois(ctx, out, gk.keys[g])
-                remaining -= sz
-            else:
-                break
-        if remaining == 0:
-            break
-    if remaining:
-        raise ValueError(f"no galois key chain reaches step {step}")
-    return out
+    return ringkit.rotate_by_steps(a, gk, step, ctx.n, lambda c, k: apply_galois(ctx, c, k))
 
 
 def conjugate(ctx, a: Ciphertext, gk: GaloisKey) -> Ciphertext:
@@ -728,19 +724,16 @@ def switch_key(ctx, a: Ciphertext, swk: KSKey) -> Ciphertext:
 # Hoisted rotations (decompose once, rotate many) on the staged kernels
 # =========================================================================
 
-def _hoist_key_slices(ctx, gk1, lvl):
-    """Level-sliced Method-II key pair."""
-    ka = ctx.active(lvl)
-    d_lvl = -(-ka // ctx.alpha)
-    return _slice_key2(ctx, gk1.k0, ka, d_lvl), _slice_key2(ctx, gk1.k1, ka, d_lvl)
-
-
 def hoist(ctx, a: Ciphertext):
     """The keyswitch digits of a.c[1] over Q̃ (NTT domain, (d̃, ka+p, n)),
-    shared by many rotations: FastBconv per group (K2 base_conv on the
-    card), then the forward transform (K1)."""
+    shared by many rotations.  Method I: the per-prime digit broadcast;
+    Method II: FastBconv per group (K2 base_conv on the card).  Then the
+    forward transform (K1)."""
     errors.check_size(a.size, 2, "hoist")
     lvl = a.level
+    if ctx.ks_type != "II":
+        return ringkit.hoist_digits(a.c[1], ctx.base_qp_at(lvl), ctx.ntt_qp_at(lvl),
+                                    in_ntt=True, ntt_q=ctx.ntt_q(lvl))
     ks2 = ctx.ks2[lvl]
     poly = nttm.ntt_inv(a.c[1], ctx.ntt_q(lvl))
     digs = [conv(poly[g[0]: g[-1] + 1]) for conv, g in zip(ks2.convs, ks2.groups)]
@@ -748,10 +741,14 @@ def hoist(ctx, a: Ciphertext):
 
 
 def ks_finish_at(ctx, acc, level: int, out_ntt: bool = True):
-    """INTT over Q̃ + exact ÷P (alpha stages) + NTT over Q."""
+    """INTT over Q̃ + exact ÷P (one stage under Method I, one per special
+    prime under II) + NTT over Q."""
     coeff = nttm.ntt_inv(acc, ctx.ntt_qp_at(level))
-    for stage in ctx.ks2[level].div_stages:
-        coeff = stage(coeff)
+    if ctx.ks_type == "II":
+        for stage in ctx.ks2[level].div_stages:
+            coeff = stage(coeff)
+    else:
+        coeff = ctx.div_p_at(level)(coeff)
     return nttm.ntt_fwd(coeff, ctx.ntt_q(level)) if out_ntt else coeff
 
 
@@ -770,7 +767,7 @@ def rotate_hoisted_qtilde(ctx, d_ntt, gk1: GaloisKeyOne, pc0, level: int):
     unpermuted digits and permute only the pair."""
     base_qp = ctx.base_qp_at(level)
     p = base_qp.col()
-    k0s, k1s = _hoist_key_slices(ctx, gk1, level)
+    k0s, k1s = _key_slices(ctx, gk1.k0, gk1.k1, level)
     if gk1.inv_form:
         acc = rns.mac_keys(d_ntt, k0s, k1s, base_qp)
         t0 = mm.add_mod(acc[0], pc0, p)

@@ -1,15 +1,17 @@
-"""Shared RNS-ring key machinery (port of the full-key subset of
-heongpu_tpu/models/ringkit.py: secret, public, relinearization, switching and
-Galois keys).
+"""Shared RNS-ring key machinery for BFV and CKKS (port of the full-key
+subset of heongpu_tpu/models/ringkit.py: secret, public, relinearization,
+switching and Galois keys, and the Method-I keyswitch).
 
 Key layout as in the reference: the secret key as ternary coefficients plus
 its NTT-domain Montgomery form over Q·P; public and keyswitch keys in the NTT
-domain over Q·P, Montgomery form.  The Method-II grouped gadget puts P·target
-on every limb of digit j's group, so one key serves every level by prefix
-slicing.  Draw order follows the reference (uniform half first, then the
-gaussian), so DRBG-seeded keys are bit-identical to the JAX package's.
-Seed-expanded keys (`a_seed`, `store_a=False`) regenerate their uniform half
-with JAX Threefry and are not ported.
+domain over Q·P, Montgomery form.  The Method-I gadget has one digit per Q
+prime and carries P·target on that prime's limb only; the Method-II grouped
+gadget puts P·target on every limb of digit j's group.  Either way one key
+serves every level by prefix slicing.  Draw order follows the reference
+(uniform half first, then the gaussian), so DRBG-seeded keys are
+bit-identical to the JAX package's.  Seed-expanded keys (`a_seed`,
+`store_a=False`, a stripped k1) regenerate their uniform half with JAX
+Threefry and are not ported.
 """
 
 from __future__ import annotations
@@ -177,6 +179,26 @@ def keygen_galois_one(ring: RingView, key, sk: SecretKey, g: int, groups=None,
     return GaloisKeyOne(kk.k0, kk.k1, src, neg, perm_ntt, g, inv_form)
 
 
+def rotate_by_steps(ct, gk: GaloisKey, step: int, n: int, apply_galois):
+    """Rotate by `step` slots (mod n/2) with the stored power-of-two keys:
+    from the largest power of two down, each stored key whose step still
+    fits is applied (apply_galois(ct, key_one)) while it fits.  Raises
+    ValueError when the stored keys cannot reach the step."""
+    step %= n // 2
+    remaining = step
+    for j in reversed(range(16)):
+        sz = 1 << j
+        while remaining >= sz:
+            g = polyops.steps_to_galois_elt(sz, n)
+            if g not in gk.keys:
+                break
+            ct = apply_galois(ct, gk.keys[g])
+            remaining -= sz
+        if remaining == 0:
+            return ct
+    raise ValueError(f"no galois key chain reaches step {step}")
+
+
 def keygen_galois(ring: RingView, key, sk: SecretKey, steps=None, max_shift: int = 8,
                   include_conj: bool = True, groups=None, elts=None,
                   a_seed: Optional[int] = None, store_a: bool = True,
@@ -203,3 +225,64 @@ def keygen_galois(ring: RingView, key, sk: SecretKey, steps=None, max_shift: int
         keys[polyops.GALOIS_CONJ] = keygen_galois_one(ring, subkeys[-1], sk, 2 * n - 1,
                                                       groups=groups, inv_form=inv_form)
     return GaloisKey(keys)
+
+
+def ensure_k1(kk):
+    """The uniform half k1 of a KSKey or GaloisKeyOne.  A stripped key
+    (k1=None, seed-expanded) would regenerate it with JAX Threefry, which the
+    port does not have."""
+    if kk.k1 is None:
+        raise errors.ParameterError(
+            "key has no stored k1: seed-expanded keys regenerate their uniform "
+            "half with JAX Threefry, which the port does not have")
+    return kk.k1
+
+
+# =========================================================================
+# Method-I keyswitch: one digit per Q prime
+# =========================================================================
+
+def slice_key_level(k_arr, k_lvl: int, k_full: int, digits: Optional[int] = None):
+    """Restrict a (d, k_full+p, n) key to the level basis: the first `digits`
+    digits (default k_lvl, one per prime as in Method I; Method II passes
+    ceil(k_lvl/alpha)) and the limbs of the first k_lvl Q primes and the
+    special prime(s), contiguous as the kernels take it."""
+    d = k_lvl if digits is None else digits
+    if k_lvl == k_full and d == k_arr.shape[0]:
+        return k_arr
+    return torch.cat([k_arr[:d, :k_lvl], k_arr[:d, k_full:]], dim=1)
+
+
+def hoist_digits(poly_q, base_qp: rns.Base, ntt_qp: nttm.NttTables, in_ntt: bool,
+                 ntt_q: Optional[nttm.NttTables] = None):
+    """Phase 1: the RNS-digit broadcast of poly_q (k, n) into every limb of
+    Q·P, then the forward transform (K1 on the card) -> (k, k+p, n).  Shared
+    by many rotations of one ciphertext."""
+    if in_ntt:
+        poly_q = nttm.ntt_inv(poly_q, ntt_q)
+    return nttm.ntt_fwd(rns.decompose_to_base(poly_q, base_qp), ntt_qp)
+
+
+def hoisted_mac(d_ntt, k0, k1, base_qp: rns.Base):
+    """Phase 2: Σ_d digit × key over Q·P for both key halves, one
+    `rns.mac_keys` call (K2 on the card): the P-scaled pair (2, k+p, n)
+    before the ÷P step."""
+    return rns.mac_keys(d_ntt, k0, k1, base_qp)
+
+
+def ks_finish(acc, ntt_qp: nttm.NttTables, div_p: rns.DivRoundLastq, out_ntt: bool,
+              ntt_q: Optional[nttm.NttTables] = None):
+    """Phase 3: INTT over Q·P, exact ÷P with rounding, optional NTT over Q.
+    acc: (..., k+p, n) NTT domain."""
+    out = div_p(nttm.ntt_inv(acc, ntt_qp))
+    return nttm.ntt_fwd(out, ntt_q) if out_ntt else out
+
+
+def keyswitch_core(poly_q, k0, k1, base_qp: rns.Base, ntt_qp: nttm.NttTables,
+                   div_p: rns.DivRoundLastq, in_ntt: bool, out_ntt: bool,
+                   ntt_q: Optional[nttm.NttTables] = None):
+    """Method-I keyswitch of one poly over the (possibly leveled) basis.
+    poly_q: (k, n) over the Q part of base_qp.  Returns (d0, d1) over Q."""
+    d_ntt = hoist_digits(poly_q, base_qp, ntt_qp, in_ntt, ntt_q)
+    out = ks_finish(hoisted_mac(d_ntt, k0, k1, base_qp), ntt_qp, div_p, out_ntt, ntt_q)
+    return out[0], out[1]

@@ -64,6 +64,15 @@ def apply_galois_ntt(x, perm):
     return torch.index_select(x, -1, perm)
 
 
+def tensor_product(a, b, p):
+    """(a0 + a1·s)(b0 + b1·s) pointwise: two (2, L, N) ciphertexts in the NTT
+    domain -> the (3, L, N) product, each term exact mod p (L, 1)."""
+    a0, a1, b0, b1 = (x.to(mm.I64) for x in (a[0], a[1], b[0], b[1]))
+    return torch.stack([torch.remainder(a0 * b0, p),
+                        torch.remainder(torch.remainder(a0 * b1, p) + a1 * b0, p),
+                        torch.remainder(a1 * b1, p)]).to(mm.I32)
+
+
 def negacyclic_shift_tables(k: int, n: int, device):
     """Tables for multiplication by X^k (k may be negative)."""
     return _signed_perm((np.arange(n, dtype=np.int64) + k % (2 * n)) % (2 * n), n, device)

@@ -59,6 +59,18 @@ def lazy_mac_mont(d_ntt, karr, base: Base, axis: int = -3):
     return torch.remainder(s * base.col("rinv"), p).to(mm.I32)
 
 
+def sum_u32_axis64(vals, axis: int):
+    """Exact sum of 32-bit words (read as unsigned) along `axis`, as int64
+    (the reference returns the same sum as a (hi, lo) pair of words)."""
+    return mm.as_u32(vals).sum(dim=axis)
+
+
+def decompose_to_base(x, obase: Base):
+    """RNS-digit broadcast: x (..., k, N) residues (digit i = limb i's value)
+    reduced into every modulus of `obase` -> (..., k, k_out, N)."""
+    return torch.remainder(x.to(mm.I64)[..., :, None, :], obase.col()).to(mm.I32)
+
+
 def _check_cpu(x):
     if x.device.type != "cpu":
         raise ValueError(f"no MAC kernel for tensors on {x.device}")

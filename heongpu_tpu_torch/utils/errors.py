@@ -18,6 +18,10 @@ class CipherSizeError(HEError):
     """Ciphertext has the wrong number of polynomials for this operation."""
 
 
+class NttDomainError(HEError):
+    """Ciphertext is in the wrong (NTT vs coefficient) domain."""
+
+
 class ParameterError(HEError):
     """Invalid or inconsistent encryption parameters."""
 
@@ -40,3 +44,9 @@ def check_size(got: int, want: int, op: str) -> None:
     if got != want:
         raise CipherSizeError(
             f"{op} expects a size-{want} ciphertext, got size {got}")
+
+
+def check_ntt_domain(in_ntt: bool, want: bool, op: str) -> None:
+    if in_ntt != want:
+        dom = "NTT" if want else "coefficient"
+        raise NttDomainError(f"{op} expects the ciphertext in {dom} domain")

@@ -110,3 +110,27 @@ def bit_reverse(x: int, bits: int) -> int:
         r = (r << 1) | (x & 1)
         x >>= 1
     return r
+
+
+def crt_garner_coeffs(primes: List[int]):
+    """Mixed-radix (Garner) coefficients for CRT composition on host."""
+    k = len(primes)
+    inv = [[0] * k for _ in range(k)]
+    for i in range(k):
+        for j in range(i + 1, k):
+            inv[i][j] = pow(primes[i], -1, primes[j])
+    return inv
+
+
+def crt_compose(residues: List[int], primes: List[int]) -> int:
+    """CRT compose to the centered integer in [-Q/2, Q/2)."""
+    q = 1
+    for p in primes:
+        q *= p
+    x = 0
+    for r, p in zip(residues, primes):
+        qi = q // p
+        x = (x + r * qi * pow(qi, -1, p)) % q
+    if x >= q // 2:
+        x -= q
+    return x

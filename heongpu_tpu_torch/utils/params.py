@@ -1,9 +1,11 @@
-"""Security-standard parameter table (max log2(Q·P) per ring degree), copied
-from heongpu_tpu/utils/params.py."""
+"""Security-standard parameter table (max log2(Q·P) per ring degree) and the
+default modulus chains, copied from heongpu_tpu/utils/params.py."""
 
 from __future__ import annotations
 
 from typing import List
+
+from . import nt
 
 # max log2(Q*P) for ternary secret, sigma=3.2 (HE standard tables; the
 # N=65536 row follows the reference library's extension of the table).
@@ -32,3 +34,17 @@ def validate_security(n: int, qp_primes: List[int], sec_level: str = "tc128"):
         raise ValueError(
             f"modulus chain {total} bits exceeds {table[n]}-bit budget for "
             f"n={n} at {sec_level}")
+
+
+def default_coeff_modulus(n: int, sec_level: str = "tc128") -> List[int]:
+    """Default Q chain: fill the security budget with 29-bit primes, leaving
+    room for one 30-bit special prime."""
+    level = sec_level if sec_level not in (None, "none") else "tc128"
+    budget = MAX_LOGQP[level][n] - 30  # reserve the special prime
+    count = max(1, budget // 29)
+    return nt.generate_ntt_primes(29, count, n)
+
+
+def plain_modulus_for(n: int, bits: int = 20) -> int:
+    """An NTT-friendly plaintext modulus (t = 1 mod 2n) for BFV batching."""
+    return nt.generate_ntt_primes(bits, 1, n)[0]

@@ -163,7 +163,7 @@ def test_own_regular_bootstrap_within_reference_limit(inv_form):
     test_regular_bootstrap: within 5e-2, and the refreshed ciphertext
     squares within 1e-1; with normal and with inverse-form Galois keys."""
     ctx, keys, sk, fresh, z, got = _own_bootstrap(
-        [29] + [28] * 18, dict(scale_bits=28, sec_level="none"),
+        [29] + [28] * 18, dict(scale_bits=28, sec_level="none", ks_type="II"),
         tboot.BootConfig(taylor_degree=7, exp_squarings=4), 16, 61, inv_form)
     assert all(k.inv_form == inv_form for k in keys.gk.keys.values())
     assert fresh.level == keys.out_level and ctx.active(fresh.level) >= 2

@@ -160,20 +160,20 @@ def test_port_rejects_misuse(chain):
     with pytest.raises(tckks.errors.LevelMismatchError):
         tckks.add(ctx, tckks.mod_drop(ctx, port["ct1"]), port["ct2"])
     with pytest.raises(tckks.errors.ParameterError):
-        tckks.make_context(N, Q_BITS, ks_type="I", device="cpu")
+        tckks.make_context(N, Q_BITS, ks_type="III", device="cpu")
 
 
 def test_port_imports_no_jax():
     """Every module of heongpu_tpu_torch, imported in a fresh interpreter,
     loads neither jax nor the JAX package; the walk reaches the
-    bootstrapping modules."""
+    bootstrapping modules, BFV and the logic gates."""
     code = ("import importlib, pkgutil, sys, heongpu_tpu_torch as pkg; "
             "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'heongpu_tpu_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
             "bad = [m for m in sys.modules if m in ('jax', 'heongpu_tpu') "
             "or m.startswith(('jax.', 'heongpu_tpu.'))]; "
             "need = {'heongpu_tpu_torch.models.' + m for m in "
-            "('ckks_boot', 'ckks_boot_ext', 'poly_eval')}; "
+            "('ckks_boot', 'ckks_boot_ext', 'poly_eval', 'bfv', 'logic')}; "
             "print(len(mods), bad, need - set(mods)); "
             "sys.exit(1 if bad or len(mods) < 20 or need - set(mods) else 0)")
     root = Path(__file__).resolve().parents[1]

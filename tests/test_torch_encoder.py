@@ -128,7 +128,7 @@ def test_sfft_tables_match_reference(n):
     (256, "complex", 29), (1024, "linspace", 29), (1024, "complex", 40), (1024, "real", 56)])
 def test_encode_batch_rns_equals_float64_oracle(n, kind, scale_bits):
     zs = np.stack([_slots(n, s, kind) for s in (1, 2, 3)])
-    primes = tckks.make_context(n, [29] * 3 + [30], device="cpu").q_primes
+    primes = tckks.make_context(n, [29] * 3 + [30], ks_type="II", device="cpu").q_primes
     scale = 2.0 ** scale_bits * 1.37
     got = tckks.encode_batch_rns(n, zs, primes, scale, "cpu")
     want = _oracle_rns(_oracle_embed(zs, n) * scale, primes)
@@ -153,7 +153,7 @@ def test_encode_batch_rns_exact_against_high_precision_dft(scale_bits):
     for i in range(n):
         s = mpmath.fsum(spec[k] * mpmath.expj(-2 * mpmath.pi * k * i / n) for k in range(n))
         exact.append(int(mpmath.nint((s / n * mpmath.expj(-mpmath.pi * i / n)).real * scale)))
-    primes = tckks.make_context(n, [29] * 3, device="cpu").q_primes
+    primes = tckks.make_context(n, [29] * 3, ks_type="II", device="cpu").q_primes
     got = _np(tckks.encode_batch_rns(n, z[None], primes, float(scale), "cpu"))[0]
     want = np.array([[v % int(q) for v in exact] for q in primes], np.uint32)
     np.testing.assert_array_equal(got, want)
@@ -166,7 +166,7 @@ def test_encode_within_two_of_reference_df64(n, q_bits, kind):
     """At the default scale the df64 path and the float64 one differ by at
     most ±2 in any centered residue; the NTT-domain plaintext is the forward
     transform of the batch encoder's residues."""
-    ctx = tckks.make_context(n, q_bits, device="cpu")
+    ctx = tckks.make_context(n, q_bits, ks_type="II", device="cpu")
     jctx = jckks.make_context(n, q_bits)
     zs = np.stack([_slots(n, s, kind) for s in (4, 5)])
     scale = ctx.default_scale
@@ -186,7 +186,7 @@ def test_encode_within_two_of_reference_df64(n, q_bits, kind):
 
 
 def test_encode_coeff_equals_oracle():
-    ctx = tckks.make_context(N, Q_BITS, device="cpu")
+    ctx = tckks.make_context(N, Q_BITS, ks_type="II", device="cpu")
     v = np.random.default_rng(8).uniform(-1, 1, N)
     for level in (0, 3):
         pt = tckks.encode_coeff(ctx, v, level=level)
@@ -201,7 +201,7 @@ def test_encode_coeff_equals_oracle():
 
 @pytest.mark.parametrize("q_bits,level", [([29] * 6, 0), ([29] * 6, 3), ([29, 29] + [28] * 6, 5)])
 def test_decode_within_1e9_of_host_oracle(q_bits, level):
-    ctx = tckks.make_context(N, q_bits, device="cpu")
+    ctx = tckks.make_context(N, q_bits, ks_type="II", device="cpu")
     z = _slots(N, 9, "complex")
     pt = tckks.encode_host(ctx, z, level=level)
     got = tckks.decode(ctx, pt)
@@ -226,8 +226,8 @@ def test_decode_within_1e9_of_host_oracle(q_bits, level):
 
 @pytest.mark.parametrize("k", [2, 5])
 def test_compose_matches_reference(k):
-    primes = tckks.make_context(N, [29] * k, device="cpu").q_primes
-    targets = tckks.make_context(N, [29] * 8, device="cpu").q_primes + (65537,)
+    primes = tckks.make_context(N, [29] * k, ks_type="II", device="cpu").q_primes
+    targets = tckks.make_context(N, [29] * 8, ks_type="II", device="cpu").q_primes + (65537,)
     r = np.random.default_rng(k)
     x = np.stack([r.integers(0, int(q), (2, 64)) for q in primes], axis=1).astype(np.uint32)
     jt = jcompose.build_tables(list(primes))

@@ -114,7 +114,7 @@ def test_slice_on_card_matches_cpu(dev):
 
     n, q_bits = 4096, [29] * 6
     z = np.linspace(-1.0, 1.0, n // 2)
-    ctx = ckks.make_context(n, q_bits, alpha=2, device=dev)
+    ctx = ckks.make_context(n, q_bits, ks_type="II", alpha=2, device=dev)
     g = rng.new_generator(3, dev)
     sk = ckks.keygen_secret(ctx, g)
     pk = ckks.keygen_public(ctx, g, sk)
@@ -127,7 +127,7 @@ def test_slice_on_card_matches_cpu(dev):
     assert all(kernels.launches[k] for k in ckks_kernels), kernels.launches
     assert np.abs(ckks.decode(ctx, ckks.decrypt(ctx, sk, out)) - z * z[::-1]).max() < 1e-3
 
-    cctx = ckks.make_context(n, q_bits, alpha=2, device="cpu")
+    cctx = ckks.make_context(n, q_bits, ks_type="II", alpha=2, device="cpu")
     cpu = lambda c: ckks.Ciphertext(c.c.cpu(), c.size, c.level, c.scale)
     want = ckks.rescale(cctx, ckks.relinearize(
         cctx, ckks.multiply(cctx, cpu(c1), cpu(c2)), ckks.KSKey(rk.k0.cpu(), rk.k1.cpu())))
@@ -204,7 +204,7 @@ def test_rotations_on_card_match_cpu(dev):
 
     n, q_bits = 4096, [29] * 6
     z = np.random.default_rng(3).uniform(0, 1, n // 2)
-    ctx = ckks.make_context(n, q_bits, alpha=2, device=dev)
+    ctx = ckks.make_context(n, q_bits, ks_type="II", alpha=2, device=dev)
     g = rng.new_generator(5, dev)
     sk = ckks.keygen_secret(ctx, g)
     pk = ckks.keygen_public(ctx, g, sk)
@@ -221,7 +221,7 @@ def test_rotations_on_card_match_cpu(dev):
         err = np.abs(ckks.decode(ctx, ckks.decrypt(ctx, sk, got)) - np.roll(z, -step)).max()
         assert err < 1e-3, (step, err)
 
-    cctx = ckks.make_context(n, q_bits, alpha=2, device="cpu")
+    cctx = ckks.make_context(n, q_bits, ks_type="II", alpha=2, device="cpu")
     cpu = lambda c: ckks.Ciphertext(c.c.cpu(), c.size, c.level, c.scale)
     cone = ringkit.GaloisKeyOne(*(t.cpu() for t in (one.k0, one.k1, one.perm_coeff_src,
                                                     one.perm_coeff_neg, one.perm_ntt)),
