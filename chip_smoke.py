@@ -44,15 +44,21 @@ Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
      the ptxas line (registers, stack, spills) of K3 and K4, of each of K5's
-     nine shape instantiations and of K1's four pass kernels at each of its
-     nine shapes; a missing line, or a K1 or K5 instance that spills, fails;
+     nine shape instantiations, of K1's four pass kernels at each of its
+     nine shapes, of K2 base_conv's 18 (each chunk width 4..32 and the
+     chunked one for k_in > 32, with and without the fused scaling) and of
+     K6's 16 (p = 1..16); a missing line, or a K1, K2, K5 or K6 instance
+     that spills, fails;
   3. K1 (NTT) against its plain torch version on the card, bit for bit,
      forward and inverse, N in {2^8, 2^9, 2^11, ..., 2^16} (2^10 in phase 8):
      each of its nine shape instantiations;
-  4. K2 (keyswitch MAC, base conversion) against the plain version; K5
-     (fused keyswitch) against keyswitch2_fused_core_plain and against the
-     staged route (K2 base_conv, K1, K2 mac_keys, K1) at N=2^12 and at
-     N=2^16, levels 0 and 1 (a short last digit group at level 1);
+  4. K2 (keyswitch MAC, base conversion with and without the fused
+     scaling, also at 5 -> 3, 14 -> 16 and 62 -> 64) and K6 (the ÷P chain: a
+     keyswitch's at levels 0 and 1, the encryption's, one stage, 8 stages, 20
+     stages in two launches) against the plain versions; K5 (fused
+     keyswitch) against keyswitch2_fused_core_plain and against the staged
+     route (K2 base_conv, K1, K2 mac_keys, K1) at N=2^12 and at N=2^16,
+     levels 0 and 1 (a short last digit group at level 1);
   5. the CKKS main path, with launch counts reset just before it and read
      just after (ntt_fwd, ntt_inv and keyswitch2_fused must launch); every
      kernel launch of it at a new input shape is held against the plain
@@ -148,6 +154,14 @@ Phases (each raises on failure, so the script exits non-zero):
      and conjugate within TOL_DECODE + 4·keyswitch_noise; mult+relin+rescale,
      rotate and rotate_hoisted equal to the CPU plain path's; per-op medians,
      device busy and idle share, key bytes.
+On every path the calls that end in one ÷P on the card (div_round_sites:
+each keyswitch, each keyswitch finish, each encryption) are counted, and the
+path fails unless K6 launched once for each.  Phase 7 also times K2
+mac_keys and base_conv 4 -> 16 (both forms) and K6 on a keyswitch's halves,
+phase 13 base_conv 4 -> 54 and K6 over the 54-limb basis (p = 6), phase 15
+base_conv 29 -> 32 (B = 2 and 3) and 31 -> 29 (both forms) and K6 with one
+stage; the last lines before the record give the device busy time and idle
+share of the main calls.
 The kernels' max_abs_err is the worst over every comparison above.  Each
 kernel's bound_ms is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and a lower count of its int32
@@ -225,6 +239,7 @@ BUTTERFLY_OPS = 6   # Shoup butterfly: a*w, umulhi(a, w'), the -q*p multiply-add
 SHOUP_OPS = 3       # Shoup product by a table constant
 MAC_OPS = 2         # 32x32 -> 64-bit multiply-accumulate
 FOLD_OPS = 10       # REDC of a 64-bit sum with the Barrett pre-reduction
+DIV_OPS = 2 + SHOUP_OPS  # one ÷P stage on a word: add the rounding constant, subtract r, Shoup
 
 
 def nbytes(*ts) -> int:
@@ -345,10 +360,11 @@ def device_idle_share(fn, reps: int, tries: int = 3):
 
 
 # The port's kernel functions (the anonymous namespaces of kernels/csrc/*.cu) as
-# torch.profiler names them.
+# torch.profiler names them: base_conv_kernel<Kin, scaled> and div_round_kernel<p>
+# are K2's and K6's templates.
 OWN_KERNEL = re.compile(r"\(anonymous namespace\)::((?:ntt_(?:fwd|inv)[12]|mac_keys_kernel|"
-                        r"base_conv_kernel|keyswitch2_fused_kernel|blind_rotate_kernel)"
-                        r"(?:<[^>]*>)?)\(")
+                        r"base_conv_kernel|div_round_kernel|keyswitch2_fused_kernel|"
+                        r"blind_rotate_kernel)(?:<[^>]*>)?)\(")
 
 
 def own_kernels(per_kernel: dict) -> dict:
@@ -368,12 +384,6 @@ def mac_keys_plain(d, k0, k1, base):
     return torch.stack([rns.lazy_mac_mont(d, k0, base), rns.lazy_mac_mont(d, k1, base)])
 
 
-def base_conv_plain(z, mat, obase):
-    """The plain version of K2's base_conv."""
-    from heongpu_tpu_torch.ops import rns
-    return rns.lazy_mac_mont(z[..., :, None, :], mat[:, :, None], obase)
-
-
 def kernel_wrappers():
     """(module, wrapper name, kernel name from its arguments, plain version)
     for every kernel wrapper of the port."""
@@ -386,7 +396,8 @@ def kernel_wrappers():
         (nttm, "ntt_cuda", lambda x, tb, inverse: "ntt_inv" if inverse else "ntt_fwd",
          lambda x, tb, inverse: (nttm.ntt_inv_plain if inverse else nttm.ntt_fwd_plain)(x, tb)),
         (rns, "mac_keys_cuda", lambda *a: "mac_keys", mac_keys_plain),
-        (rns, "base_conv_cuda", lambda *a: "base_conv", base_conv_plain),
+        (rns, "base_conv_cuda", lambda *a: "base_conv", rns.base_conv_plain),
+        (rns, "div_round_cuda", lambda *a: "div_round", rns.div_round_chain_plain),
         (ksf, "keyswitch2_fused_cuda", lambda *a: "keyswitch2_fused",
          ksf.keyswitch2_fused_core_plain),
         (tk, "blind_rotate_cuda",
@@ -394,6 +405,16 @@ def kernel_wrappers():
          lambda acc, a_t, key, ctx, unrolled=False:
              (tfhe.blind_rotate2_plain if unrolled else tfhe.blind_rotate_plain)(acc, a_t, key, ctx)),
     ]
+
+
+def held_shape(arg):
+    """What tells a kernel's launches apart beside its tensors' shapes: a
+    tensor's shape, and a ÷P chain's stage count (K6's template)."""
+    import torch
+    from heongpu_tpu_torch.ops import rns
+    if isinstance(arg, torch.Tensor):
+        return tuple(arg.shape)
+    return ("stages", len(arg)) if isinstance(arg, rns.DivRoundChain) else None
 
 
 @contextlib.contextmanager
@@ -410,7 +431,7 @@ def held_against_plain(what, errs):
         def recorded(*args, _fn=getattr(mod, attr), _namer=namer, _plain=plain):
             out = _fn(*args)
             name = _namer(*args)
-            shapes = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            shapes = tuple(held_shape(a) for a in args if held_shape(a) is not None)
             seen = checked.setdefault(name, {})
             if shapes not in seen:
                 seen[shapes] = e = max_err(out, _plain(*args))
@@ -431,6 +452,55 @@ def held_against_plain(what, errs):
     for name, seen in sorted(checked.items()):
         print(f"{name}: {len(seen)} {what} shapes held against plain, "
               f"max err={max(seen.values())}")
+
+
+# The functions that end in exactly one ÷P each, so in one K6 launch when they
+# run on the card: a keyswitch of either route (Method II), a keyswitch finish
+# (Method I's keyswitch_core, the hoisted and accumulated finishes of both
+# methods: ckks.ks_finish_at and BFV's hoisted rotations call it), and an
+# encryption.  (module, function).
+DIV_ROUND_SITES = (("ops.keyswitch2", "keyswitch2"), ("models.ringkit", "ks_finish"),
+                   ("models.ckks", "_encrypt_zero_ntt"), ("models.bfv", "encrypt"))
+
+
+DIV_ROUND_RUNS = {}   # path -> its K6 launches and ÷P sites (div_round_sites)
+
+
+def on_card(arg) -> bool:
+    """Whether an argument (a tensor, or a context with a device) is on the card."""
+    return getattr(getattr(arg, "device", None), "type", None) == "cuda"
+
+
+@contextlib.contextmanager
+def div_round_sites(what):
+    """Counts the calls of the DIV_ROUND_SITES functions on the card during the
+    block, and raises unless K6 launched exactly once for each: every ÷P of the
+    path ran as one K6 launch, none as the plain stage loop.  The counts go
+    into DIV_ROUND_RUNS[what]."""
+    import importlib
+    from heongpu_tpu_torch import kernels
+    counts, saved = {}, []
+    for mod_name, attr in DIV_ROUND_SITES:
+        mod = importlib.import_module(f"heongpu_tpu_torch.{mod_name}")
+        f = getattr(mod, attr)
+
+        def counted(*a, _f=f, _name=attr, **k):
+            if any(on_card(v) for v in list(a) + list(k.values())):
+                counts[_name] = counts.get(_name, 0) + 1
+            return _f(*a, **k)
+        saved.append((mod, attr, f))
+        setattr(mod, attr, counted)
+    start = kernels.launches["div_round"]
+    try:
+        yield counts
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    k6 = kernels.launches["div_round"] - start
+    print(f"{what}: K6 div_round launched {k6} times for {sum(counts.values())} ÷P sites {counts}")
+    DIV_ROUND_RUNS[what] = {"div_round": k6, "sites": counts}
+    if k6 != sum(counts.values()):
+        raise AssertionError(f"{what}: {k6} K6 launches for the ÷P sites {counts}")
 
 
 def require_launched(what, launches, names):
@@ -507,15 +577,16 @@ def staged_route(ctx, level, args):
 
 
 def time_kernels(shapes, where, n, card, errs):
-    """{kernel: its record} for shapes {kernel: (kernel fn, plain fn, shape
-    text, (bound ms, bound_by))}: each held against its plain version (the
-    worst error into errs), then timed (CUDA events, and the device ms of
-    the hand-written kernels from torch.profiler) beside the plain version
-    and the bound."""
+    """{label: its record} for shapes {label: (kernel fn, plain fn, shape
+    text, (bound ms, bound_by))}, each label's first word the kernel's name:
+    each held against its plain version (the worst error into errs), then
+    timed (CUDA events, and the device ms of the hand-written kernels from
+    torch.profiler) beside the plain version and the bound."""
     out = {}
     for name, (kf, pf, what, bnd) in shapes.items():
         e = max_err(kf(), pf())
-        errs[name] = max(errs[name], e)
+        kernel = name.split()[0]
+        errs[kernel] = max(errs[kernel], e)
         if e:
             raise AssertionError(f"{name} disagrees with its plain version at {what}")
         ms_k = cuda_ms(kf, reps=10)
@@ -544,6 +615,55 @@ def keyswitch_bound(args):
                  + 2 * d * kqp * n * MAC_OPS + 2 * kqp * n * FOLD_OPS)
 
 
+def base_conv_bound(z, conv, scaled: bool):
+    """base_conv's bound on z (B, k_in, N): z, the matrix, the constants and
+    the output once; a product per input word and output limb, a fold per
+    output word, a Shoup product per input word where the scaling is fused."""
+    k_in, k_out = conv.mat_mont.shape
+    n = z.shape[-1]
+    b = z.numel() // (k_in * n)
+    ob = conv.obase
+    return bound(nbytes(z, conv.mat_mont, ob.p, ob.pinv, ob.mu, *([conv.scale] if scaled else []))
+                 + b * k_out * n * 4,
+                 b * n * (k_in * k_out * MAC_OPS + k_out * FOLD_OPS + scaled * k_in * SHOUP_OPS))
+
+
+def div_round_bound(x, chain):
+    """K6's bound on x (B, k+p, N): x, the table and the output once; each
+    stage's update of each Q word and of the special words still present."""
+    p, k, n = len(chain), chain.k, x.shape[-1]
+    b = x.numel() // ((k + p) * n)
+    return bound(nbytes(x, chain.tab) + b * k * n * 4,
+                 b * n * (k * p + p * (p - 1) // 2) * DIV_OPS)
+
+
+def conv_shapes(conv, z):
+    """time_kernels entries for base_conv on z: unscaled and with the scaling
+    fused."""
+    from heongpu_tpu_torch.ops import rns
+    k_in, k_out = conv.mat_mont.shape
+    shape = f"{'x'.join(map(str, z.shape[:-2])) or '1'} x {k_in} -> {k_out}"
+    return {
+        f"base_conv {k_in}->{k_out} B={z.numel() // (k_in * z.shape[-1])}": (
+            lambda: rns.base_conv_cuda(z, conv.mat_mont, conv.obase),
+            lambda: rns.base_conv_plain(z, conv.mat_mont, conv.obase),
+            shape, base_conv_bound(z, conv, False)),
+        f"base_conv {k_in}->{k_out} B={z.numel() // (k_in * z.shape[-1])} scaled": (
+            lambda: rns.base_conv_cuda(z, conv.mat_mont, conv.obase, conv.scale),
+            lambda: rns.base_conv_plain(z, conv.mat_mont, conv.obase, conv.scale),
+            shape + ", scaling fused", base_conv_bound(z, conv, True))}
+
+
+def div_shapes(chain, x, label):
+    """A time_kernels entry for K6 on x."""
+    from heongpu_tpu_torch.ops import rns
+    p, k = len(chain), chain.k
+    return {f"div_round {label}": (
+        lambda: rns.div_round_cuda(x, chain), lambda: rns.div_round_chain_plain(x, chain),
+        f"{tuple(x.shape)} -> {tuple(x.shape[:-2]) + (k, x.shape[-1])}, p={p}",
+        div_round_bound(x, chain))}
+
+
 def rotation_phase(ctx, cctx, sk, pk, card, errs):
     """Phase 6: the CKKS rotation path on the main-path context.  Returns
     (launch counts of the path, its record, a function that times it)."""
@@ -561,7 +681,7 @@ def rotation_phase(ctx, cctx, sk, pk, card, errs):
     dec_errs = {}   # name -> (max abs decode error, keyswitches the result went through)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with held_against_plain("CKKS rotation path", errs):
+    with held_against_plain("CKKS rotation path", errs), div_round_sites("CKKS rotation path"):
         g = rng.new_generator(2, ctx.device)
         gk = ckks.keygen_galois(ctx, g, sk, steps=[1 << j for j in range(log_slots)])
         ct = ckks.encrypt(ctx, pk, ckks.encode(ctx, z), g)
@@ -662,7 +782,7 @@ def tfhe_phases(dev, card, check_ntt, time_ntt, errs):
     check_ntt(ctx.ntt, 8, "TFHE 2-limb table")
     check_ntt(ctx.ntt, 8 * TFHE_B, f"TFHE 2-limb table, the accumulators of a {2 * TFHE_B}-gate MUX")
     g = rng.new_generator(11, dev)
-    with held_against_plain("TFHE keygen", errs):
+    with held_against_plain("TFHE keygen", errs), div_round_sites("TFHE keygen"):
         sk = tfhe.keygen_secret(g, ctx.n, device=dev)
         bk = tfhe.keygen_boot(ctx, g, sk)
         bk2 = tfhe.keygen_boot_unrolled(ctx, g, sk)
@@ -691,7 +811,7 @@ def tfhe_phases(dev, card, check_ntt, time_ntt, errs):
     xs, ys = r.integers(0, 256, HUINT_COUNT), r.integers(0, 256, HUINT_COUNT)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with held_against_plain("TFHE main path", errs):
+    with held_against_plain("TFHE main path", errs), div_round_sites("TFHE main path"):
         cx, cy, cs = (tfhe.encrypt(ctx, sk, v, g) for v in (x, y, s))
         hx = tfhe_int.encrypt_huint(ctx, sk, xs, 8, g)
         hy = tfhe_int.encrypt_huint(ctx, sk, ys, 8, g)
@@ -1044,7 +1164,7 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
                                              dev, key_dev="cpu")
     cpu_out = ckks_boot.regular_bootstrap(cctx, cct, ckeys)
     dctx = ckks.make_context(256, PREC_Q_BITS, device=dev, **PREC_CTX)
-    with held_against_plain("bootstrap N=256", errs):
+    with held_against_plain("bootstrap N=256", errs), div_round_sites("bootstrap N=256"):
         out = ckks_boot.regular_bootstrap(
             dctx, ckks.Ciphertext(cct.c.to(dev), cct.size, cct.level, cct.scale),
             boot_keys_to(ckeys, dev))
@@ -1063,7 +1183,7 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
     t0 = time.perf_counter()
     ctx, sk, keys, ct, z, keygen_s = boot_setup(n_mid, BOOT_Q_BITS, BOOT_CTX, BOOT_CFG, BOOT_HW,
                                                 22, dev)
-    with held_against_plain(f"bootstrap N={n_mid}", errs):
+    with held_against_plain(f"bootstrap N={n_mid}", errs), div_round_sites(f"bootstrap N={n_mid}"):
         out = ckks_boot.regular_bootstrap(ctx, ct, keys)
         torch.cuda.synchronize()
     err_b, p99_b = boot_error(ctx, sk, out, z)
@@ -1097,7 +1217,8 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
           f"{resident / 1e9:.3f} GB; pieces (level, n1, diagonals, giants) {pieces}")
     kernels.reset_launches()
     t1 = time.perf_counter()
-    with held_against_plain(f"bootstrap N={n_full}", errs):
+    with held_against_plain(f"bootstrap N={n_full}", errs), \
+            div_round_sites(f"bootstrap N={n_full}"):
         out = ckks_boot.regular_bootstrap(ctx, ct, keys)
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
@@ -1147,14 +1268,12 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
                           bound(nbytes(dd, k0, k1, dd[:2], bq.p, bq.pinv, bq.mu),
                                 2 * dd.numel() * MAC_OPS + 2 * len(qp) * n_full * FOLD_OPS))
     conv = ctx.ks2[0].convs[0]
-    k_in, k_out = conv.mat_mont.shape
-    zc = rand_residues([int(v) for v in conv.ibase.p.tolist()], (k_in, n_full), gen, dev)
-    shapes["base_conv"] = (lambda: rns.base_conv_cuda(zc, conv.mat_mont, conv.obase),
-                           lambda: base_conv_plain(zc, conv.mat_mont, conv.obase),
-                           f"{k_in} -> {k_out}",
-                           bound(nbytes(zc, conv.mat_mont, dd[0, :k_out], conv.obase.p,
-                                        conv.obase.pinv, conv.obase.mu),
-                                 k_in * k_out * n_full * MAC_OPS + k_out * n_full * FOLD_OPS))
+    zc = rand_residues([int(v) for v in conv.ibase.p.tolist()], (conv.mat_mont.shape[0], n_full),
+                       gen, dev)
+    shapes.update(conv_shapes(conv, zc))
+    # K6 on a keyswitch's two halves over the 54-limb basis, six special primes
+    x54 = rand_residues(qp * 2, (2 * len(qp), n_full), gen, dev).view(2, len(qp), n_full)
+    shapes.update(div_shapes(ctx.ks2[0].div_stages, x54, "keyswitch"))
     shapes = time_kernels(shapes, "the bootstrap's", n_full, card, errs)
     rec[f"n{n_full}"] = {
         "max_abs_err": err_c, "p99_abs_err": p99_c, "ms": ms, "runs_ms": runs,
@@ -1163,7 +1282,7 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
         "launches": launches, "profile": boot_prof,
         "plain_device_ms_by_step": steps, "kernels": shapes,
         "seconds": time.perf_counter() - t0}
-    del ctx, sk, keys, ct, out, fargs, dd, k0, k1
+    del ctx, sk, keys, ct, out, fargs, dd, k0, k1, zc, x54
     torch.cuda.empty_cache()
     return launches, rec
 
@@ -1394,7 +1513,8 @@ def bootstrap_v2_phases(dev, card, errs, n_small=256, n_full=1 << 16):
     runs = v2_runs(cctx, sk, pk, g, n_small, skd, ckks.keygen_public(cctx, g, skd))
     to_dev = lambda c: ckks.Ciphertext(c.c.to(dev), c.size, c.level, c.scale)
     same_all, errs_a, keys_by = {}, {}, {}
-    with held_against_plain(f"bootstrap variants N={n_small}", errs):
+    with held_against_plain(f"bootstrap variants N={n_small}", errs), \
+            div_round_sites(f"bootstrap variants N={n_small}"):
         for name, (kw, fn, inputs, want, skey) in runs.items():
             if repr(kw) not in keys_by:
                 keys_by[repr(kw)] = ext.generate_bootstrap_keys_v2(
@@ -1451,7 +1571,8 @@ def bootstrap_v2_phases(dev, card, errs, n_small=256, n_full=1 << 16):
                   f"{kb['relin'] / 1e9:.3f} GB, diagonals {kb['diagonals'] / 1e9:.3f} GB, switch "
                   f"{kb['switch'] / 1e9:.3f} GB; resident {r['resident_bytes'] / 1e9:.3f} GB")
         kernels.reset_launches()
-        with held_against_plain(f"bootstrap {name} N={n_full}", errs):
+        with held_against_plain(f"bootstrap {name} N={n_full}", errs), \
+                div_round_sites(f"bootstrap {name} N={n_full}"):
             out = call(keys)
             torch.cuda.synchronize()
             launches = dict(kernels.launches)
@@ -1601,7 +1722,8 @@ def bfv_phases(dev, card, errs, time_ntt, gen, n_small=256, n_full=BFV_N):
         mk = lambda d: bfv.make_context(n_small, t_small, q_bits=BFV_SMALL_Q_BITS, device=d,
                                         **method)
         cpu_out, cpu_nb = bfv_entry_points(mk("cpu"), m1, m2)
-        with held_against_plain(f"BFV N={n_small} Method {method['ks_type']}", errs):
+        with held_against_plain(f"BFV N={n_small} Method {method['ks_type']}", errs), \
+                div_round_sites(f"BFV N={n_small} Method {method['ks_type']}"):
             out, nb = bfv_entry_points(mk(dev), m1, m2)
             torch.cuda.synchronize()
         diff = [k for k in out if not torch.equal(out[k].cpu(), cpu_out[k])]
@@ -1642,7 +1764,8 @@ def bfv_phases(dev, card, errs, time_ntt, gen, n_small=256, n_full=BFV_N):
     rows = lambda m, s: np.concatenate([np.roll(m[:half], -s), np.roll(m[half:], -s)])
     kernels.reset_launches()
     t1 = time.perf_counter()
-    with held_against_plain(f"BFV N={n_full} default chain", errs):
+    with held_against_plain(f"BFV N={n_full} default chain", errs), \
+            div_round_sites(f"BFV N={n_full} default chain"):
         c1 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m1), g)
         c2 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m2), g)
         rel = bfv.relinearize(ctx, bfv.multiply(ctx, c1, c2), rk)
@@ -1699,27 +1822,31 @@ def bfv_phases(dev, card, errs, time_ntt, gen, n_small=256, n_full=BFV_N):
                   "mult_relin")
     print_profile(f"BFV rotate_rows by 1 N={n_full} default chain", ops["rotate_rows_1"], 3, card,
                   prof_b, "rotate_rows_1")
-    # K1 over the Method-I digits, K2 mac_keys over 29 digits, base_conv q -> Bsk
+    # K1 over the Method-I digits, K2 mac_keys over 29 digits, base_conv, K6
     ntt_recs = {"ntt_fwd": [time_ntt(ctx.ntt_qp, ctx.k, False)]}
     bq, conv = ctx.base_qp, ctx.conv_q_bsk
     nd, nl = ctx.k, len(bq)
     dd, k0, k1 = (rand_residues(list(ctx.qp_primes) * nd, (nd * nl, n_full), gen, dev)
                   .view(nd, nl, n_full) for _ in range(3))
-    k_in, k_out = conv.mat_mont.shape
-    zc = rand_residues(list(ctx.q_primes) * 2, (2 * k_in, n_full), gen, dev).view(2, k_in, n_full)
-    kern = time_kernels({
-        "mac_keys": (lambda: rns.mac_keys_cuda(dd, k0, k1, bq),
-                     lambda: mac_keys_plain(dd, k0, k1, bq), f"{tuple(dd.shape)}",
-                     bound(nbytes(dd, k0, k1, dd[:2], bq.p, bq.pinv, bq.mu),
-                           2 * dd.numel() * MAC_OPS + 2 * nl * n_full * FOLD_OPS)),
-        "base_conv": (lambda: rns.base_conv_cuda(zc, conv.mat_mont, conv.obase),
-                      lambda: base_conv_plain(zc, conv.mat_mont, conv.obase),
-                      f"2 x {k_in} -> {k_out}",
-                      bound(nbytes(zc, conv.mat_mont, conv.obase.p, conv.obase.pinv,
-                                   conv.obase.mu) + 2 * k_out * n_full * 4,
-                            2 * k_in * k_out * n_full * MAC_OPS + 2 * k_out * n_full * FOLD_OPS))},
-        "BFV's default-chain", n_full, card, errs)
-    del dd, k0, k1, zc
+    shapes = {"mac_keys": (lambda: rns.mac_keys_cuda(dd, k0, k1, bq),
+                           lambda: mac_keys_plain(dd, k0, k1, bq), f"{tuple(dd.shape)}",
+                           bound(nbytes(dd, k0, k1, dd[:2], bq.p, bq.pinv, bq.mu),
+                                 2 * dd.numel() * MAC_OPS + 2 * nl * n_full * FOLD_OPS))}
+    # base_conv: q -> Bsk on an operand's 2 polys (the lift, unscaled), on the 3 polys
+    # of the tensor product (the floor, scaled), Bsk -> q on 3 polys (unscaled)
+    kq, kb = ctx.k, ctx.bsk_k
+    zq = {b: rand_residues(list(ctx.q_primes) * b, (b * kq, n_full), gen, dev).view(b, kq, n_full)
+          for b in (2, 3)}
+    zb = rand_residues(list(ctx.bsk_primes[:kb]) * 3, (3 * kb, n_full), gen, dev).view(3, kb,
+                                                                                       n_full)
+    for z in zq.values():
+        shapes.update(conv_shapes(conv, z))
+    shapes.update(conv_shapes(ctx.conv_b_q, zb))
+    # K6 on a Method-I keyswitch's two halves: one stage over 29 + 1 limbs
+    x30 = rand_residues(list(ctx.qp_primes) * 2, (2 * nl, n_full), gen, dev).view(2, nl, n_full)
+    shapes.update(div_shapes(ctx.div_p.chain, x30, "Method I"))
+    kern = time_kernels(shapes, "BFV's default-chain", n_full, card, errs)
+    del dd, k0, k1, zq, zb, x30
     rec[f"n{n_full}_default"] = {
         "q_primes": ctx.k, "p_primes": len(ctx.p_primes), "bsk": ctx.bsk_k + 1, "t": t,
         "launches": launches_b, "noise_budget": nb, "keygen_s": keygen_s,
@@ -1741,7 +1868,8 @@ def bfv_phases(dev, card, errs, time_ntt, gen, n_small=256, n_full=BFV_N):
     key_bytes = {"relin": nbytes(rk.k0, rk.k1),
                  "galois": sum(nbytes(k.k0, k.k1) for k in gk.keys.values())}
     kernels.reset_launches()
-    with held_against_plain(f"BFV N={n_full} bench shape", errs):
+    with held_against_plain(f"BFV N={n_full} bench shape", errs), \
+            div_round_sites(f"BFV N={n_full} bench shape"):
         c1 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m1), g)
         c2 = bfv.encrypt(ctx, pk, bfv.encode(ctx, m2), g)
         dec = {"add": (bfv.add(ctx, c1, c2), (m1 + m2) % t),
@@ -1810,7 +1938,7 @@ def ckks_method1_phase(dev, card, errs, n=N):
     ks_noise = keyswitch_noise(ctx)
     kernels.reset_launches()
     t1 = time.perf_counter()
-    with held_against_plain(f"CKKS Method I N={n}", errs):
+    with held_against_plain(f"CKKS Method I N={n}", errs), div_round_sites(f"CKKS Method I N={n}"):
         ct1 = ckks.encrypt(ctx, pk, ckks.encode(ctx, z), g)
         ct2 = ckks.encrypt(ctx, pk, ckks.encode(ctx, z[::-1].copy()), g)
         relin = ckks.relinearize(ctx, ckks.multiply(ctx, ct1, ct2), rk)
@@ -1927,10 +2055,21 @@ def run(dev) -> int:
     if log and len(ntt_ptxas) != 4 * 9:
         raise AssertionError(f"no ptxas line for each of K1's four passes at nine shapes: "
                              f"{ntt_ptxas}")
+    k2k6_ptxas = {}
+    for fn, line in ptxas_summary(log, "base_conv_kernel").items():
+        kp, scaled, chunked = re.search(r"base_conv_kernelILi(\d+)ELb([01])ELb([01])E", fn).groups()
+        k2k6_ptxas[("base_conv", int(kp), scaled == "1", chunked == "1")] = line
+    for fn, line in ptxas_summary(log, "div_round_kernel").items():
+        k2k6_ptxas[("div_round", int(re.search(r"div_round_kernelILi(\d+)E", fn).group(1)))] = line
+    for key, line in sorted(k2k6_ptxas.items()):
+        print(f"ptxas {'mac.cu' if key[0] == 'base_conv' else 'divround.cu'} {key}: {line}")
+    if log and len(k2k6_ptxas) != 2 * 9 + rns.DIV_ROUND_MAX_STAGES:
+        raise AssertionError(f"no ptxas line for each of K2 base_conv's nine instances "
+                             f"(both forms) and K6's stage counts: {k2k6_ptxas}")
     spills = [k for k, line in list(ks_ptxas.items()) + list(ntt_ptxas.items())
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+              + list(k2k6_ptxas.items()) if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
-        raise AssertionError(f"K1 or K5 instances spill: {spills}")
+        raise AssertionError(f"K1, K2, K5 or K6 instances spill: {spills}")
     for d in ("fwd", "inv"):
         if (f"ntt_{d}1", 256, 256) in ntt_ptxas:
             ptxas[f"ntt_{d}"] = "; ".join(f"pass {k}: {ntt_ptxas[(f'ntt_{d}{k}', 256, 256)]}"
@@ -2010,12 +2149,45 @@ def run(dev) -> int:
         k_in = conv.mat_mont.shape[0]
         z = rand_residues([int(v) for v in conv.ibase.p.tolist()], (k_in, N), gen, dev)
         e = max_err(rns.base_conv_cuda(z, conv.mat_mont, conv.obase),
-                    base_conv_plain(z, conv.mat_mont, conv.obase))
+                    rns.base_conv_plain(z, conv.mat_mont, conv.obase))
+        e_s = max_err(rns.base_conv_cuda(z, conv.mat_mont, conv.obase, conv.scale),
+                      rns.base_conv_plain(z, conv.mat_mont, conv.obase, conv.scale))
+        errs["base_conv"] = max(errs["base_conv"], e, e_s)
+        print(f"K2 base_conv ({what}, {N}): err={e}, with the scaling fused err={e_s}")
+    # K6: Method II's four stages at levels 0 and 1, the encryption's, one stage
+    for chain, what in ((ctx.ks2[0].div_stages, "keyswitch level 0"),
+                        (ctx.ks2[1].div_stages, "keyswitch level 1"),
+                        (ctx.enc_div, "encryption"), (ctx.div_p.chain, "one stage")):
+        x = rand_residues(list(ctx.qp_primes[:chain.k]) + list(ctx.p_primes[:len(chain)]),
+                          (chain.k + len(chain), N), gen, dev).repeat(2, 1, 1)
+        e = max_err(rns.div_round_cuda(x, chain), rns.div_round_chain_plain(x, chain))
+        errs["div_round"] = max(errs["div_round"], e)
+        print(f"K6 div_round ({what}: {tuple(x.shape)}, p={len(chain)}): err={e}")
+    # widths no path of this script runs, at N=4096: BFV's lifts on smaller chains (5 -> 3,
+    # 14 -> 16), 62 input limbs (two chunks of K2's widest instance) at B=3; K6 over 8
+    # stages, and over 20 (two launches: 16 stages, then 4)
+    pr = nt.generate_ntt_primes(29, 126, 4096)
+    for k_in, k_out in ((5, 3), (14, 16), (62, 64)):
+        conv = rns.BaseConv.build(pr[:k_in], pr[k_in:k_in + k_out], dev)
+        z = rand_residues(pr[:k_in] * 3, (3 * k_in, 4096), gen, dev).view(3, k_in, 4096)
+        e = max(max_err(rns.base_conv_cuda(z, conv.mat_mont, conv.obase, *sc),
+                        rns.base_conv_plain(z, conv.mat_mont, conv.obase, *sc))
+                for sc in ((), (conv.scale,)))
         errs["base_conv"] = max(errs["base_conv"], e)
-        print(f"K2 base_conv ({what}, {N}): err={e}")
+        print(f"K2 base_conv ({k_in} -> {k_out}, B=3, 4096), both forms: err={e}")
+    for k, p in ((12, 8), (6, 20)):
+        stages, remaining = [], pr[:k + p]
+        for sp in reversed(pr[k:k + p]):
+            remaining = remaining[:-1]
+            stages.append(rns.DivRoundLastq.build(remaining, sp, dev))
+        chain = rns.DivRoundChain.build(stages)
+        x = rand_residues(pr[:k + p] * 2, (2 * (k + p), 4096), gen, dev).view(2, k + p, 4096)
+        e = max_err(rns.div_round_cuda(x, chain), rns.div_round_chain_plain(x, chain))
+        errs["div_round"] = max(errs["div_round"], e)
+        print(f"K6 div_round ({tuple(x.shape)}, p={p}, {len(chain.pieces)} launches): err={e}")
     torch.cuda.synchronize()
-    if errs["mac_keys"] or errs["base_conv"]:
-        raise AssertionError("MAC kernels disagree with the plain version")
+    if errs["mac_keys"] or errs["base_conv"] or errs["div_round"]:
+        raise AssertionError("K2 or K6 disagrees with its plain version")
 
     small = ckks.make_context(1 << 12, Q_BITS, ks_type="II", alpha=ALPHA, device=dev)
     for c, level in ((small, 0), (small, 1), (ctx, 0), (ctx, 1)):
@@ -2035,7 +2207,7 @@ def run(dev) -> int:
     z = np.linspace(-1.0, 1.0, N // 2)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with held_against_plain("CKKS main path", errs):
+    with held_against_plain("CKKS main path", errs), div_round_sites("CKKS main path"):
         g = rng.new_generator(1, dev)
         sk = ckks.keygen_secret(ctx, g)
         pk = ckks.keygen_public(ctx, g, sk)
@@ -2104,28 +2276,26 @@ def run(dev) -> int:
     ntt_recs = {"ntt_fwd": [time_ntt(ctx.ntt_qp, 3, False), time_ntt(ctx.ntt_q(0), 2, False),
                             time_ntt(ctx.ntt_q(0), 1, False)],
                 "ntt_inv": [time_ntt(ctx.ntt_qp, 2, True), time_ntt(ctx.ntt_q(0), 1, True)]}
+    # K2 at the main path's shapes (mac_keys over 3 digits of 16 limbs, the 4 -> 16
+    # conversion of hoisting, both forms) and K6 on a keyswitch's two halves
+    # (2, 16, 2^16) -> (2, 12, 2^16)
     z4 = rand_residues(ctx.q_primes[:4], (4, N), gen, dev)
-    conv = ctx.ks2[0].convs[0]
     bq = ctx.base_qp
-    timed = {
-        "mac_keys": (lambda: rns.mac_keys_cuda(d, k0, k1, bq),
-                     lambda: mac_keys_plain(d, k0, k1, bq), "(3, 16, 2^16)",
-                     bound(nbytes(d, k0, k1, d[:2], bq.p, bq.pinv, bq.mu),
-                           2 * d.numel() * MAC_OPS + 2 * 16 * N * FOLD_OPS)),
-        "base_conv": (lambda: rns.base_conv_cuda(z4, conv.mat_mont, conv.obase),
-                      lambda: base_conv_plain(z4, conv.mat_mont, conv.obase),
-                      "(4 -> 16, 2^16)",
-                      bound(nbytes(z4, conv.mat_mont, d[0], conv.obase.p, conv.obase.pinv,
-                                   conv.obase.mu), 4 * 16 * N * MAC_OPS + 16 * N * FOLD_OPS)),
-    }
+    chain = ctx.ks2[0].div_stages
+    x16 = rand_residues(list(ctx.qp_primes) * 2, (32, N), gen, dev).view(2, 16, N)
+    shapes = {"mac_keys": (lambda: rns.mac_keys_cuda(d, k0, k1, bq),
+                           lambda: mac_keys_plain(d, k0, k1, bq), "(3, 16, 2^16)",
+                           bound(nbytes(d, k0, k1, d[:2], bq.p, bq.pinv, bq.mu),
+                                 2 * d.numel() * MAC_OPS + 2 * 16 * N * FOLD_OPS))}
+    shapes.update(conv_shapes(ctx.ks2[0].convs[0], z4))
+    shapes.update(div_shapes(chain, x16, "keyswitch"))
+    k2k6 = time_kernels(shapes, "the main path's", N, card, errs)
     times = {k: (r[0]["ms"], r[0]["plain_ms"]) for k, r in ntt_recs.items()}
     bounds = {k: (r[0]["bound_ms"], r[0]["bound_by"]) for k, r in ntt_recs.items()}
-    for name, (kern, plain, shape, bnd) in timed.items():
-        ms = cuda_ms(kern, reps=20)
-        pms = cuda_ms(plain, reps=3)
-        times[name], bounds[name] = (ms, pms), bnd
-        print(f"time {name} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    for name, label in (("mac_keys", "mac_keys"), ("base_conv", "base_conv 4->16 B=1 scaled"),
+                        ("div_round", "div_round keyswitch")):
+        r = k2k6[label]
+        times[name], bounds[name] = (r["ms"], r["plain_ms"]), (r["bound_ms"], r["bound_by"])
     # K5 at levels 0 and 1, each beside the staged route on the same inputs (held
     # equal first), in turns: staged, kernel, kernel, staged
     ks_levels = {}
@@ -2200,6 +2370,8 @@ def run(dev) -> int:
                                 "heongpu_tpu/ops/tfhe_kernel.py:558"),
                "blind_rotate2": ("heongpu_tpu_torch/kernels/csrc/tfhe.cu",
                                  "heongpu_tpu/ops/tfhe_kernel.py:572"),
+               "div_round": ("heongpu_tpu_torch/kernels/csrc/divround.cu",
+                             "heongpu_tpu/ops/rns.py:226"),
                "keyswitch2_fused": ("heongpu_tpu_torch/kernels/csrc/keyswitch.cu",
                                     "heongpu_tpu/ops/keyswitch_pallas.py:148")}
     kernels_rec = [
@@ -2211,7 +2383,21 @@ def run(dev) -> int:
     kernels_rec[-1].update(staged_ms=ks_levels[0]["staged_ms"],
                            ratio_to_staged=ks_levels[0]["ratio_to_staged"],
                            device_ms=ks_levels[0]["device_ms"], level1=ks_levels[1])
+    # K2 and K6: the device time at the main path's shape, and every timed shape
+    boot_full, v2_full = list(boot_rec.values())[-1], list(v2_rec.values())[-1]
+    bfv_default = next(r for k, r in bfv_rec.items() if k.endswith("_default"))
+    # every timed shape under its phase's name: the phases time a kernel under
+    # the same labels
+    k_shapes = {f"{phase}: {lbl}": (lbl.split()[0], r)
+                for phase, recs in (("main", k2k6), ("bootstrap", boot_full["kernels"]),
+                                    ("bfv", bfv_default["kernels"]))
+                for lbl, r in recs.items()}
+    main_label = {"mac_keys": "mac_keys", "base_conv": "base_conv 4->16 B=1 scaled",
+                  "div_round": "div_round keyswitch"}
     for k in kernels_rec:
+        if k["name"] in main_label:
+            k.update(device_ms=k2k6[main_label[k["name"]]]["device_ms"],
+                     shapes={lbl: r for lbl, (name, r) in k_shapes.items() if name == k["name"]})
         if k["name"] in ntt_recs:
             first = ntt_recs[k["name"]][0]
             k.update(device_ms=first["device_ms"], passes=first["passes"],
@@ -2230,7 +2416,18 @@ def run(dev) -> int:
               "bootstrap_launches": boot_launches, "bootstrap": boot_rec,
               "bootstrap_v2_launches": v2_launches, "bootstrap_v2": v2_rec,
               "bfv_launches": bfv_launches, "bfv": bfv_rec,
-              "ckks_method1_launches": m1_launches, "ckks_method1": m1_rec}
+              "ckks_method1_launches": m1_launches, "ckks_method1": m1_rec,
+              "div_round_runs": DIV_ROUND_RUNS}
+    busy = {"CKKS mult+relin (Method II)": ckks_prof,
+            "CKKS mult+relin, Method I": m1_rec["profile"],
+            "BFV mult+relin, default chain": bfv_default["profile"]}
+    print("device busy ms / idle share: " + "; ".join(
+        f"{what} {fmt_ms(prof['mult_relin_busy_ms'])} / {fmt_ms(prof['mult_relin_idle_share'])}"
+        for what, prof in busy.items())
+        + f"; bootstrap depth 48 {fmt_ms(boot_full['profile']['bootstrap_busy_ms'])} / "
+        f"{fmt_ms(boot_full['profile']['bootstrap_idle_share'])}; regular v2 "
+        f"{fmt_ms(v2_full['regular']['profile']['run_busy_ms'])} / "
+        f"{fmt_ms(v2_full['regular']['profile']['run_idle_share'])} [{card}]")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, bound with ctypes.
 
 The wrappers live beside their plain torch versions (ops/ntt.py:
-`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`;
+`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`, `div_round_cuda`;
 ops/keyswitch_fused.py: `keyswitch2_fused_cuda`; ops/tfhe_kernel.py:
 `blind_rotate_cuda`); this module
 builds and loads the library (kernels/build.py) and keeps the launch counts:
@@ -16,7 +16,7 @@ import torch
 from . import build
 
 launches = {"ntt_fwd": 0, "ntt_inv": 0, "mac_keys": 0, "base_conv": 0,
-            "blind_rotate": 0, "blind_rotate2": 0, "keyswitch2_fused": 0}
+            "blind_rotate": 0, "blind_rotate2": 0, "keyswitch2_fused": 0, "div_round": 0}
 
 _lib = None
 

@@ -88,7 +88,7 @@ class BfvContext:
     gamma_inv_t: int
     # keyswitch P-drop
     div_p: rns.DivRoundLastq
-    enc_div: tuple             # sequential ÷p stages over Q·P (encrypt)
+    enc_div: rns.DivRoundChain  # sequential ÷p stages over Q·P (encrypt; one K6 launch)
     ks2: tuple                 # (KS2Level,) under Method II, else ()
     # encoder slot map
     slot_index: torch.Tensor   # (n,) int64 NTT-domain position of slot j
@@ -223,7 +223,7 @@ def make_context(n: int,
         dec_off=i32([half_q % s * pow(Q % s, -1, s) % s for s in (t, gamma)]),
         gamma_inv_t=pow(gamma % t, -1, t),
         div_p=rns.DivRoundLastq.build(q_primes, p_primes[0], device),
-        enc_div=tuple(enc_div), ks2=ks2,
+        enc_div=rns.DivRoundChain.build(enc_div), ks2=ks2,
         slot_index=torch.from_numpy(slot_index).to(device),
         ntt_bsk=nttm.build_ntt_tables(bsk_all, n, device=device),
         conv_q_bsk=rns.BaseConv.build(q_primes, bsk_all, device),
@@ -352,10 +352,8 @@ def encrypt(ctx: BfvContext, pk: PublicKey, plain, key) -> Ciphertext:
     ku, k0, k1 = rng.split(key, 3)
     qp = ctx.base_qp
     u = nttm.ntt_fwd(rng.ternary_rns(ku, ctx.qp_primes, (ctx.n,), ctx.device), ctx.ntt_qp)
-    c = nttm.ntt_inv(mm.mont_mul(torch.stack([pk.pk0, pk.pk1]), u, qp.col(), qp.col("rinv")),
-                     ctx.ntt_qp)
-    for stage in ctx.enc_div:
-        c = stage(c)
+    c = ctx.enc_div(nttm.ntt_inv(
+        mm.mont_mul(torch.stack([pk.pk0, pk.pk1]), u, qp.col(), qp.col("rinv")), ctx.ntt_qp))
     e = torch.stack([rng.gaussian_rns(k0, ctx.q_primes, (ctx.n,), ctx.device),
                      rng.gaussian_rns(k1, ctx.q_primes, (ctx.n,), ctx.device)])
     p = ctx.base_q.col()
@@ -489,7 +487,7 @@ def _behz_bsk_to_q(ctx: BfvContext, w):
     """The exact Shenoy-Kumaresan conversion Bsk -> q, w: (..., k_bsk+1, n)."""
     kb = ctx.bsk_k
     w_b, w_msk = w[..., :kb, :], w[..., kb, :]
-    z = ctx.conv_b_q.scaled_digits(w_b)
+    z = ctx.conv_b_q.scaled_digits(w_b)       # also read by the m_sk row below
     w_q = ctx.conv_b_q.convert_from_digits(z)                # (..., k, n)
     # alpha_sk = [(conv_msk - w_msk) · B^-1]_{m_sk}, centered
     msk = int(ctx.bsk_primes[-1])
@@ -629,12 +627,8 @@ def rotate_rows_hoisted(ctx: BfvContext, ct: Ciphertext, d_ntt,
     k1 = ringkit.ensure_k1(gk1)
     dp = d_ntt if gk1.inv_form else polyops.apply_galois_ntt(d_ntt, gk1.perm_ntt)
     acc = ringkit.hoisted_mac(dp, gk1.k0, k1, ctx.base_qp)
-    if ctx.ks_type == "II":
-        out = nttm.ntt_inv(acc, ctx.ntt_qp)
-        for stage in ctx.ks2[0].div_stages:
-            out = stage(out)
-    else:
-        out = ringkit.ks_finish(acc, ctx.ntt_qp, ctx.div_p, out_ntt=False)
+    div = ctx.ks2[0].div_stages if ctx.ks_type == "II" else ctx.div_p
+    out = ringkit.ks_finish(acc, ctx.ntt_qp, div, out_ntt=False)
     src, neg = gk1.perm_coeff_src, gk1.perm_coeff_neg
     if gk1.inv_form:
         comb = torch.stack([mm.add_mod(ct.c[0], out[0], p), out[1]])

@@ -65,7 +65,7 @@ class CkksContext:
     base_qp: rns.Base
     div_p: rns.DivRoundLastq    # ÷(first special) at level 0
     div_level: tuple            # div_level[lvl] = DivRoundLastq dropping q_{k-1-lvl}
-    enc_div: tuple              # sequential ÷p stages over Q·P (encrypt path)
+    enc_div: rns.DivRoundChain  # sequential ÷p stages over Q·P (encrypt path; one K6 launch)
     ks2: tuple                  # per-level keyswitch2.KS2Level (Method II; empty under I)
     slot_to_ntt: torch.Tensor   # (n/2,) int32: NTT index of slot j
     conj_perm: torch.Tensor     # (n,) NTT-domain permutation for conjugation
@@ -109,11 +109,14 @@ class CkksContext:
         """÷(first special prime) over the level's active Q limbs."""
         if level == 0:
             return self.div_p
-        ka = self.active(level)
-        d = self.div_p
-        return dataclasses.replace(
-            d, qbase=d.qbase.take(slice(0, ka)), half_mod=d.half_mod[:ka],
-            pinv_mod=d.pinv_mod[:ka])
+        key = ("div_p", level)
+        if key not in self._level_tables:
+            ka = self.active(level)
+            d = self.div_p
+            self._level_tables[key] = dataclasses.replace(
+                d, qbase=d.qbase.take(slice(0, ka)), half_mod=d.half_mod[:ka],
+                pinv_mod=d.pinv_mod[:ka])
+        return self._level_tables[key]
 
 
 def make_context(n: int,
@@ -212,7 +215,7 @@ def make_context(n: int,
         base_qp=rns.Base.build(q_primes + p_primes, device),
         div_p=rns.DivRoundLastq.build(q_primes, p_primes[0], device),
         div_level=div_level,
-        enc_div=tuple(enc_div),
+        enc_div=rns.DivRoundChain.build(enc_div),
         ks2=ks2,
         slot_to_ntt=torch.from_numpy(slot_to_ntt).to(device),
         conj_perm=polyops.galois_perm_ntt(2 * n - 1, n, device),
@@ -505,10 +508,8 @@ def _encrypt_zero_ntt(ctx: CkksContext, pk: PublicKey, key):
     p, rinv = qp.col(), qp.col("rinv")
     u = nttm.ntt_fwd(rng.ternary_rns(ku, ctx.qp_primes, (ctx.n,), ctx.device),
                      ctx.ntt_qp)
-    c = nttm.ntt_inv(mm.mont_mul(torch.stack([pk.pk0, pk.pk1]), u, p, rinv),
-                     ctx.ntt_qp)
-    for stage in ctx.enc_div:
-        c = stage(c)
+    c = ctx.enc_div(nttm.ntt_inv(mm.mont_mul(torch.stack([pk.pk0, pk.pk1]), u, p, rinv),
+                                   ctx.ntt_qp))
     e0 = rng.gaussian_rns(k0, ctx.q_primes, (ctx.n,), ctx.device)
     e1 = rng.gaussian_rns(k1, ctx.q_primes, (ctx.n,), ctx.device)
     c = mm.add_mod(c, torch.stack([e0, e1]), ctx.base_q.col())
@@ -742,14 +743,9 @@ def hoist(ctx, a: Ciphertext):
 
 def ks_finish_at(ctx, acc, level: int, out_ntt: bool = True):
     """INTT over Q̃ + exact ÷P (one stage under Method I, one per special
-    prime under II) + NTT over Q."""
-    coeff = nttm.ntt_inv(acc, ctx.ntt_qp_at(level))
-    if ctx.ks_type == "II":
-        for stage in ctx.ks2[level].div_stages:
-            coeff = stage(coeff)
-    else:
-        coeff = ctx.div_p_at(level)(coeff)
-    return nttm.ntt_fwd(coeff, ctx.ntt_q(level)) if out_ntt else coeff
+    prime under II; one K6 launch on the card) + NTT over Q."""
+    div = ctx.ks2[level].div_stages if ctx.ks_type == "II" else ctx.div_p_at(level)
+    return ringkit.ks_finish(acc, ctx.ntt_qp_at(level), div, out_ntt, ctx.ntt_q(level))
 
 
 def rotate_hoisted(ctx, a: Ciphertext, d_ntt, gk1: GaloisKeyOne) -> Ciphertext:

@@ -270,10 +270,11 @@ def hoisted_mac(d_ntt, k0, k1, base_qp: rns.Base):
     return rns.mac_keys(d_ntt, k0, k1, base_qp)
 
 
-def ks_finish(acc, ntt_qp: nttm.NttTables, div_p: rns.DivRoundLastq, out_ntt: bool,
+def ks_finish(acc, ntt_qp: nttm.NttTables, div_p, out_ntt: bool,
               ntt_q: Optional[nttm.NttTables] = None):
-    """Phase 3: INTT over Q·P, exact ÷P with rounding, optional NTT over Q.
-    acc: (..., k+p, n) NTT domain."""
+    """Phase 3: INTT over Q·P, exact ÷P with rounding (div_p: a DivRoundLastq,
+    or a Method-II DivRoundChain; one K6 launch on the card), optional NTT
+    over Q.  acc: (..., k+p, n) NTT domain."""
     out = div_p(nttm.ntt_inv(acc, ntt_qp))
     return nttm.ntt_fwd(out, ntt_q) if out_ntt else out
 

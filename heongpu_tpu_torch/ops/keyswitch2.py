@@ -3,7 +3,7 @@
 The k Q-primes split into d̃ = ceil(k/alpha) consecutive groups; each digit
 is the exact value [c]_{D_j} carried into the full Q·P basis by FastBconv,
 transformed, MAC'd against the key halves, transformed back, and divided by
-P = Π special primes one prime at a time.
+P = Π special primes, one prime after another (one K6 launch on the card).
 
 A 2-D poly with at most 16 digits (the reference's condition for its fused
 route) goes through the fused core (ops/keyswitch_fused.py: K5 on the card,
@@ -30,7 +30,7 @@ class KS2Level:
     groups: Tuple[Tuple[int, ...], ...]   # active prime indices per digit
     num_active: int
     convs: Tuple[rns.BaseConv, ...]       # group primes -> active Q + P basis
-    div_stages: Tuple[rns.DivRoundLastq, ...]  # divide by each special prime
+    div_stages: rns.DivRoundChain         # divide by each special prime (one K6 launch)
 
 
 def build_ks2_level(q_primes: Sequence[int], p_primes: Sequence[int],
@@ -48,7 +48,7 @@ def build_ks2_level(q_primes: Sequence[int], p_primes: Sequence[int],
         remaining = remaining[:-1]
         stages.append(rns.DivRoundLastq.build(remaining, sp, device))
     return KS2Level(alpha=alpha, groups=groups, num_active=ka,
-                    convs=convs, div_stages=tuple(stages))
+                    convs=convs, div_stages=rns.DivRoundChain.build(stages))
 
 
 def keyswitch2(poly_q, k0, k1, ks2: KS2Level, ntt_qp_level: nttm.NttTables,
@@ -67,9 +67,7 @@ def keyswitch2(poly_q, k0, k1, ks2: KS2Level, ntt_qp_level: nttm.NttTables,
     digits = torch.stack([conv(poly_q[..., g[0]: g[-1] + 1, :])
                           for conv, g in zip(ks2.convs, ks2.groups)], dim=-3)
     d_ntt = nttm.ntt_fwd(digits, ntt_qp_level)            # (d̃, ka+alpha, n)
-    acc = nttm.ntt_inv(rns.mac_keys(d_ntt, k0, k1, base_qp_level), ntt_qp_level)
-    for stage in ks2.div_stages:
-        acc = stage(acc)
+    acc = ks2.div_stages(nttm.ntt_inv(rns.mac_keys(d_ntt, k0, k1, base_qp_level), ntt_qp_level))
     if out_ntt:
         acc = nttm.ntt_fwd(acc, ntt_q_level)   # both halves in one transform
     return acc[0], acc[1]

@@ -115,9 +115,7 @@ def keyswitch2_fused(poly_q, k0, k1, ks2, ntt_qp_level: nttm.NttTables,
     z = torch.cat([conv.scaled_digits(poly_q[g[0]: g[-1] + 1])
                    for conv, g in zip(ks2.convs, ks2.groups)])
     mat = build_fused_mat(ks2, ntt_qp_level.num_limbs)
-    acc = keyswitch2_fused_core(z, mat, k0, k1, ntt_qp_level, ks2.groups)
-    for stage in ks2.div_stages:
-        acc = stage(acc)
+    acc = ks2.div_stages(keyswitch2_fused_core(z, mat, k0, k1, ntt_qp_level, ks2.groups))
     if out_ntt:
         acc = nttm.ntt_fwd(acc, ntt_q_level)   # both halves in one transform
     return acc[0], acc[1]

@@ -1,7 +1,8 @@
-// Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu, keyswitch.cu and ntt.cu
-// use, so that their device code compiles with a C++20 host compiler and runs one block
-// at a time with one std::thread per CUDA thread (tests/test_torch_tfhe_host_kernel.py,
-// tests/test_torch_keyswitch_host_kernel.py, tests/test_torch_ntt_host_kernel.py).
+// Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu, keyswitch.cu, ntt.cu,
+// mac.cu and divround.cu use, so that their device code compiles with a C++20 host
+// compiler and runs one block at a time with one std::thread per CUDA thread
+// (tests/test_torch_tfhe_host_kernel.py, tests/test_torch_keyswitch_host_kernel.py,
+// tests/test_torch_ntt_host_kernel.py, tests/test_torch_rns_host_kernel.py).
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -25,6 +26,10 @@ struct uint2 {
   uint32_t x, y;
 };
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
+struct alignas(16) uint4 {
+  uint32_t x, y, z, w;
+};
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return uint4{a, b, c, d}; }
 inline uint32_t min(uint32_t a, uint32_t b) { return a < b ? a : b; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);

@@ -75,14 +75,57 @@ def test_mac_keys_kernel_matches_plain(dev, d, limbs, n):
     _equal(trns.mac_keys(dd, k0, k1, base), want)
 
 
-@pytest.mark.parametrize("k_in,k_out,n", [(4, 16, 65536), (2, 14, 65536), (3, 5, 256)])
+@pytest.mark.parametrize("k_in,k_out,n", [(4, 16, 65536), (2, 14, 65536), (3, 5, 256),
+                                         (1, 5, 4096), (6, 4, 256), (8, 11, 32768),
+                                         (10, 8, 32768), (29, 32, 32768), (31, 29, 32768),
+                                         (5, 3, 4096), (14, 16, 16384), (16, 14, 16384),
+                                         (40, 12, 4096), (62, 64, 65536)])
 def test_base_conv_kernel_matches_plain(dev, k_in, k_out, n):
+    """K2 base_conv at the widths its callers give it (BFV's lifts at N = 4096
+    with three Q primes, 5 -> 3, and at N = 2^14 on the default chain, 14 -> 16 and
+    16 -> 14; 40 and 62 input limbs in two chunks), unscaled (convert_from_digits)
+    and with the scaling fused (BaseConv's call), B = 1 and 3."""
     rng = np.random.default_rng(k_in)
     primes = tnt.generate_ntt_primes(29, k_in + k_out, n)
     conv = trns.BaseConv.build(primes[:k_in], primes[k_in:], dev)
     z = _residues(rng, primes[:k_in], (k_in, n), dev)
     want = trns.lazy_mac_mont(z[:, None, :], conv.mat_mont[:, :, None], conv.obase)
     _equal(conv.convert_from_digits(z), want)
+    z3 = _residues(rng, primes[:k_in] * 3, (3 * k_in, n), dev).view(3, k_in, n)
+    _equal(conv(z3), trns.base_conv_plain(z3, conv.mat_mont, conv.obase, conv.scale))
+    _equal(conv(z3), conv.convert_from_digits(conv.scaled_digits(z3)))
+
+
+def test_base_conv_wrapper_rejects_odd_n(dev):
+    primes = tnt.generate_ntt_primes(29, 10, 256)
+    conv = trns.BaseConv.build(primes[:5], primes[5:], dev)
+    with pytest.raises(ValueError, match="even N"):
+        conv(torch.zeros((5, 255), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("k,p,n", [(12, 4, 65536), (48, 6, 65536), (30, 1, 32768), (1, 1, 256),
+                                   (5, 2, 4096), (7, 3, 4096), (9, 5, 4096), (12, 8, 65536),
+                                   (180, 16, 4096), (6, 20, 4096)])
+def test_div_round_kernel_matches_plain(dev, k, p, n):
+    """K6 against the stages one after another, with p = 1 to 20 special primes:
+    180 + 16 limbs take a table above 48 KB of shared memory, 20 stages two
+    launches (16 and 4)."""
+    from heongpu_tpu_torch import kernels
+    q = tnt.generate_ntt_primes(29, k, n)
+    specials = tnt.generate_ntt_primes(30, p, n)
+    stages, remaining = [], q + specials
+    for sp in reversed(specials):
+        remaining = remaining[:-1]
+        stages.append(trns.DivRoundLastq.build(remaining, sp, dev))
+    chain = trns.DivRoundChain.build(stages)
+    x = _residues(np.random.default_rng(k + p), (q + specials) * 2, (2 * (k + p), n), dev)
+    x = x.view(2, k + p, n)
+    before = kernels.launches["div_round"]
+    got = chain(x)
+    assert kernels.launches["div_round"] == before + len(chain.pieces)
+    _equal(got, trns.div_round_chain_plain(x, chain))
+    if p == 1:
+        _equal(stages[0](x), got)
 
 
 def test_wrappers_reject_bad_input(dev):

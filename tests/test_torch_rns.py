@@ -1,6 +1,8 @@
 """Port parity: heongpu_tpu_torch.ops.rns / keyswitch2 against the reference.
 
-BaseConv, the lazy Montgomery MAC and DivRoundLastq on random residues, and
+BaseConv (with the scaling fused into the conversion, as K2 takes it, and
+without), the lazy Montgomery MAC, DivRoundLastq and the ÷P chain
+DivRoundChain on random residues, and
 the staged Method-II keyswitch over all four in/out NTT-domain combinations
 (the pattern of tests/test_keyswitch_fused.py), plus one combination against
 the reference's fused Pallas keyswitch in interpret mode — all
@@ -45,6 +47,8 @@ def _residues(rng, primes, shape):
 
 
 PRIMES = tnt.generate_ntt_primes(29, 6, N) + tnt.generate_ntt_primes(30, 2, N)
+# enough primes for the widest conversions (31 -> 29, 4 -> 54) and ÷P chains (48 + 6)
+WIDE = tnt.generate_ntt_primes(29, 60, N) + tnt.generate_ntt_primes(30, 6, N)
 
 
 def test_base_fields_match():
@@ -53,20 +57,32 @@ def test_base_fields_match():
         np.testing.assert_array_equal(_np(getattr(tb, f)), np.asarray(getattr(jb, f)), f)
 
 
-@pytest.mark.parametrize("k_in,k_out", [(2, 8), (3, 5), (1, 4)])
+# the three first cases, then widths that K2's callers give it: the alpha groups,
+# BFV's lifts (5 -> 3 at N = 4096 with three Q primes, 14 -> 16 at N = 2^14, 29 -> 32
+# and 31 -> 29 at N = 2^15), and 40 input limbs (two of the kernel's chunks)
+@pytest.mark.parametrize("k_in,k_out", [(2, 8), (3, 5), (1, 4), (4, 16), (4, 54), (6, 7),
+                                        (8, 11), (10, 8), (29, 32), (31, 29), (5, 3),
+                                        (14, 16), (40, 12)])
 def test_base_conv_matches(k_in, k_out):
     rng = np.random.default_rng(k_in * 10 + k_out)
-    ins, outs = PRIMES[:k_in], PRIMES[-k_out:]
+    ins, outs = WIDE[:k_in], WIDE[-k_out:]
     jc, tc = jrns.BaseConv.build(ins, outs), trns.BaseConv.build(ins, outs, "cpu")
     np.testing.assert_array_equal(_np(tc.mat_mont), np.asarray(jc.mat_mont))
     np.testing.assert_array_equal(_np(tc.qhat_inv), np.asarray(jc.qhat_inv))
+    np.testing.assert_array_equal(_np(tc.scale[1:]),
+                                  np.stack([np.asarray(jc.qhat_inv), np.asarray(jc.qhat_inv_sh)]))
     x = _residues(rng, ins, (2, k_in, N))
     want = jc(jnp.asarray(x))
     got = tc(_t(x))
     assert got.shape == (2, k_out, N)
     np.testing.assert_array_equal(_np(got), np.asarray(want))
-    np.testing.assert_array_equal(_np(tc.scaled_digits(_t(x))),
-                                  np.asarray(jc.scaled_digits(jnp.asarray(x))))
+    # the fused form K2 takes: the scaling inside the conversion
+    fused = trns.base_conv_plain(_t(x), tc.mat_mont, tc.obase, tc.scale)
+    np.testing.assert_array_equal(_np(fused), np.asarray(want))
+    z = jc.scaled_digits(jnp.asarray(x))
+    np.testing.assert_array_equal(_np(tc.scaled_digits(_t(x))), np.asarray(z))
+    np.testing.assert_array_equal(_np(tc.convert_from_digits(_t(np.asarray(z)))),
+                                  np.asarray(jc.convert_from_digits(z)))
 
 
 @pytest.mark.parametrize("d", [1, 3, 17, 33])
@@ -93,6 +109,62 @@ def test_div_round_lastq_matches():
     x[0, :, :3] = 0
     x[0, -1, 3] = last - 1
     np.testing.assert_array_equal(_np(td(_t(x))), np.asarray(jd(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("p", [1, 4, 6])
+@pytest.mark.parametrize("k", [12, 48])
+def test_div_round_chain_matches(k, p):
+    """The port's ÷P chain (DivRoundChain, plain path on the CPU) against the JAX
+    package's DivRoundLastq stages applied one after another."""
+    rng = np.random.default_rng(k * 10 + p)
+    q, specials = WIDE[:k], WIDE[-p:]
+    jstages, tstages, remaining = [], [], q + specials
+    for sp in reversed(specials):
+        remaining = remaining[:-1]
+        jstages.append(jrns.DivRoundLastq.build(remaining, sp))
+        tstages.append(trns.DivRoundLastq.build(remaining, sp, "cpu"))
+    chain = trns.DivRoundChain.build(tstages)
+    assert (chain.k, len(chain)) == (k, p)
+    x = _residues(rng, q + specials, (2, k + p, N))
+    x[0, :, :3] = 0
+    x[1, :, :3] = np.array(q + specials, np.uint32)[:, None] - 1
+    want = jnp.asarray(x)
+    for stage in jstages:
+        want = stage(want)
+    got = chain(_t(x))
+    assert got.shape == (2, k, N)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_div_round_chain_pieces_match():
+    """A chain longer than one K6 launch takes (20 stages) cut into pieces of 16
+    and 4: the pieces one after another equal the JAX package's stage loop."""
+    rng = np.random.default_rng(20)
+    q, specials = WIDE[:12], WIDE[-20:]
+    jstages, tstages, remaining = [], [], q + specials
+    for sp in reversed(specials):
+        remaining = remaining[:-1]
+        jstages.append(jrns.DivRoundLastq.build(remaining, sp))
+        tstages.append(trns.DivRoundLastq.build(remaining, sp, "cpu"))
+    chain = trns.DivRoundChain.build(tstages)
+    assert [len(c) for c in chain.pieces] == [16, 4]
+    assert [c.k for c in chain.pieces] == [16, 12]
+    x = _residues(rng, q + specials, (2, 32, N))
+    want = jnp.asarray(x)
+    for stage in jstages:
+        want = stage(want)
+    got = _t(x)
+    for piece in chain.pieces:
+        got = piece(got)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    np.testing.assert_array_equal(_np(chain(_t(x))), np.asarray(want))
+
+
+def test_div_round_chain_rejects_stages_out_of_order():
+    q, specials = WIDE[:4], WIDE[-2:]
+    first = trns.DivRoundLastq.build(q + specials[:1], specials[1], "cpu")
+    with pytest.raises(ValueError, match="last limb"):
+        trns.DivRoundChain.build([first, trns.DivRoundLastq.build(q, specials[1], "cpu")])
 
 
 def _ks_setup(ka, alpha, seed=7):

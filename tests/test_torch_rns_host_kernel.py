@@ -1,0 +1,279 @@
+"""The sources of the base-conversion kernel K2 (kernels/csrc/mac.cu, base_conv)
+and of the ÷P kernel K6 (kernels/csrc/divround.cu), compiled for the host and run
+on the CPU: each CUDA thread of a block is a std::thread, __syncthreads is a
+std::barrier (tests/host_cuda/), and each launch runs over its whole grid, the
+256 threads walking the blocks in turn with a block barrier between two.  The
+kernels' shared-memory tables, register columns, folds, output-limb split and
+index arithmetic must give the plain versions' bits (rns.base_conv_plain,
+rns.div_round_chain_plain): base_conv at every chunk width it is built for, at
+k_in short of each and at k_in of two and three chunks, with and without the
+fused scaling, B = 1 and 3, at N = 256 and 4096, and at N = 2^16 where a block
+takes several output limbs; K6 with p = 1 to 16 special primes over k = 1 to 48
+Q limbs at N = 256 and 4096, and a chain of 20 in two pieces.  No jax.  Skips
+where no C++20 host compiler with <barrier> is installed."""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from heongpu_tpu_torch.kernels import build  # noqa: E402
+from heongpu_tpu_torch.ops import modmath as tm  # noqa: E402
+from heongpu_tpu_torch.ops import rns as trns  # noqa: E402
+from heongpu_tpu_torch.utils import nt as tnt  # noqa: E402
+
+torch.set_num_threads(2)
+
+SHIMS = Path(__file__).resolve().parent / "host_cuda"
+HARNESS = """#include <cuda_runtime.h>
+#include <barrier>
+#include <thread>
+#include <vector>
+namespace { alignas(16) uint32_t sm[1 << 14]; }
+thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+static std::barrier<>* g_block;
+void __syncthreads() { g_block->arrive_and_wait(); }
+void __syncwarp(unsigned) {}
+"""
+RUN_GRID = """
+// Runs kern over the grid: kThreads std::threads walk the blocks in turn, and
+// between two blocks thread 0 fills the shared memory with a pattern.
+template <class F>
+void run_grid(dim3 grid, F kern) {
+  std::barrier<> block(kThreads);
+  g_block = &block;
+  const unsigned blocks = grid.x * grid.y * grid.z;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < kThreads; ++t)
+    threads.emplace_back([=, &block] {
+      threadIdx.x = t;
+      blockDim.x = kThreads;
+      gridDim = grid;
+      for (unsigned b = 0; b < blocks; ++b) {
+        if (t == 0) memset(sm, 0xAB, sizeof(sm));
+        block.arrive_and_wait();
+        blockIdx.x = b % grid.x;
+        blockIdx.y = b / grid.x % grid.y;
+        blockIdx.z = b / (grid.x * grid.y);
+        kern();
+        block.arrive_and_wait();
+      }
+    });
+  for (auto& th : threads) th.join();
+}
+"""
+SOURCES = {
+    "mac": ("template <int KP, bool CHUNKED>\nint launch_base_conv(", 'extern "C" int hf_base_conv', """
+template <int KP, bool CHUNKED>
+int launch_base_conv(const ConvParams& P, dim3 grid, cudaStream_t) {
+  if (conv_smem_bytes(P.per, P.stride) > sizeof(sm)) return 1;
+  if (P.scale)
+    run_grid(grid, [&] { base_conv_kernel<KP, true, CHUNKED>(P); });
+  else
+    run_grid(grid, [&] { base_conv_kernel<KP, false, CHUNKED>(P); });
+  return 0;
+}
+"""),
+    "divround": ("template <int P>\nint launch_div_round(", 'extern "C" int hf_div_round', """
+template <int P>
+int launch_div_round(const DivParams& A, int B, cudaStream_t) {
+  if (A.words * sizeof(uint32_t) > sizeof(sm)) return 1;
+  const dim3 grid{static_cast<unsigned>((A.N + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(B), 1u};
+  run_grid(grid, [&] { div_round_kernel<P>(A); });
+  return 0;
+}
+"""),
+}
+
+
+def host_source(stem: str) -> str:
+    """The source's text with its launch replaced by a host run of the grid, and
+    only its entry point named `entry` kept (renamed host_*)."""
+    launch_at, entry_at, launch = SOURCES[stem]
+    src = (build.CSRC / f"{stem}.cu").read_text()
+    entry = src.index(entry_at)
+    tail = src[entry:].replace("hf_", "host_")
+    return HARNESS + src[:src.index(launch_at)] + RUN_GRID + launch + "}  // namespace\n\n" + tail
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("host_rns")
+    probe = d / "probe.cpp"
+    probe.write_text("#include <barrier>\n"
+                     "int main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
+    if subprocess.run([cxx, "-std=c++20", "-pthread", "-o", str(d / "probe"), str(probe)],
+                      capture_output=True).returncode:
+        pytest.skip("the host compiler has no C++20 <barrier>")
+    libs = {}
+    for stem, name in (("mac", "hf_base_conv"), ("divround", "hf_div_round")):
+        cpp = d / f"{stem}_host.cpp"
+        cpp.write_text(host_source(stem))
+        so = d / f"lib{stem}_host.so"
+        res = subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
+                              f"-I{SHIMS}", f"-I{build.CSRC}", "-o", str(so), str(cpp)],
+                             capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-4000:]
+        fn = getattr(ctypes.CDLL(str(so)), name.replace("hf_", "host_"))
+        fn.argtypes = build.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        libs[stem] = fn
+    return libs
+
+
+def _residues(rng, primes, shape):
+    """shape (..., L, n) with limb axis -2 over `primes`."""
+    p = np.array(primes, np.uint64)[:, None]
+    x = (rng.integers(0, 1 << 62, size=shape, dtype=np.uint64) % p).astype(np.uint32)
+    return tm.u32_to_i32(x)
+
+
+# The SM count of an H100 SXM, which sizes the wave that base_conv's output-limb
+# split fills
+SMS = 132
+
+
+def run_base_conv(fn, z, conv, scale, sms=SMS):
+    """The host-compiled base_conv on CPU tensors, with the C arguments
+    base_conv_cuda passes.  Returns (error code, output)."""
+    k_in, k_out = conv.mat_mont.shape
+    n = z.shape[-1]
+    out = torch.empty(z.shape[:-2] + (k_out, n), dtype=tm.I32)
+    ob = conv.obase
+    err = fn(z.data_ptr(), conv.mat_mont.data_ptr(), out.data_ptr(), ob.p.data_ptr(),
+             ob.pinv.data_ptr(), ob.mu.data_ptr(), conv.scale.data_ptr() if scale else None,
+             z.numel() // (k_in * n), k_in, k_out, n, sms, None)
+    return err, out
+
+
+# (k_in, k_out): the alpha groups into the CKKS Q̃ bases (16 limbs, the
+# bootstrap's 54), BFV's Bsk conversions (6 -> 4 and 8 -> 11 at small N, 16 -> 14
+# at N = 2^14, 29 -> 32 and 31 -> 29 on the default 128-bit chain), a width in
+# each chunk instance short of its multiple of 4, and k_in of two and three chunks
+CONV_CASES = [(1, 5), (2, 14), (3, 15), (4, 16), (4, 54), (5, 7), (6, 4), (8, 11), (10, 8),
+              (14, 16), (16, 14), (19, 5), (23, 6), (27, 4), (29, 32), (31, 29), (32, 3),
+              (40, 12), (70, 5)]
+
+
+def test_conv_cases_cover_every_instance():
+    """Every chunk width the kernel is built for (4 to 32 words), each also at a
+    k_in short of it, and k_in of one, two and three chunks."""
+    width = lambda k: min(-(-k // 4) * 4, 32)
+    assert {width(k) for k, _ in CONV_CASES} == set(range(4, 33, 4))
+    assert {width(k) for k, _ in CONV_CASES if k % 4 and k < 32} == set(range(4, 33, 4))
+    assert {-(-k // 32) for k, _ in CONV_CASES} == {1, 2, 3}
+
+
+@pytest.mark.parametrize("k_in,k_out", CONV_CASES, ids=[f"{a}to{b}" for a, b in CONV_CASES])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_base_conv_source_on_host_matches_plain(host_libs, k_in, k_out, n):
+    primes = tnt.generate_ntt_primes(29, k_in + k_out, n)
+    conv = trns.BaseConv.build(primes[:k_in], primes[k_in:], "cpu")
+    rng = np.random.default_rng(k_in * 100 + k_out + n)
+    for batch in (1, 3):
+        z = _residues(rng, primes[:k_in] * batch, (batch * k_in, n)).view(batch, k_in, n)
+        z[0, :, :2] = torch.tensor(primes[:k_in], dtype=tm.I32)[:, None] - 1
+        for scale in (False, True):
+            err, got = run_base_conv(host_libs["mac"], z, conv, scale)
+            assert err == 0
+            want = trns.base_conv_plain(z, conv.mat_mont, conv.obase,
+                                        conv.scale if scale else None)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, conv(z), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sms", [132, 114], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("k_in,k_out", [(4, 16), (4, 54)], ids=["4to16", "4to54"])
+def test_base_conv_source_on_host_splits_output_limbs(host_libs, k_in, k_out, sms):
+    """At N=2^16 and B=1 a block takes several output limbs (4 and 11 here on
+    132 SMs), as on the main path; at N <= 4096 each block takes one to three."""
+    n = 1 << 16
+    primes = tnt.generate_ntt_primes(29, k_in + k_out, n)
+    conv = trns.BaseConv.build(primes[:k_in], primes[k_in:], "cpu")
+    z = _residues(np.random.default_rng(k_out), primes[:k_in], (k_in, n))
+    for scale in (False, True):
+        err, got = run_base_conv(host_libs["mac"], z, conv, scale, sms)
+        assert err == 0
+        torch.testing.assert_close(got, trns.base_conv_plain(
+            z, conv.mat_mont, conv.obase, conv.scale if scale else None), rtol=0, atol=0)
+
+
+def test_base_conv_source_rejects_a_row_wider_than_shared_memory(host_libs):
+    """A k_in whose one matrix row and scale table outgrow the 48 KB of shared
+    memory is refused before anything is read."""
+    z = torch.zeros((4, 256), dtype=tm.I32)
+    assert host_libs["mac"](z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                            z.data_ptr(), z.data_ptr(), None, 1, 4000, 1, 256, SMS, None) != 0
+
+
+def _chain(k, p, q_bits):
+    """A DivRoundChain over k Q primes of q_bits bits and p 30-bit special
+    primes, built the way the contexts build their encryption chains."""
+    n = 4096
+    q = tnt.generate_ntt_primes(q_bits, k, n)
+    specials = tnt.generate_ntt_primes(30, p, n)
+    stages, remaining = [], q + specials
+    for sp in reversed(specials):
+        remaining = remaining[:-1]
+        stages.append(trns.DivRoundLastq.build(remaining, sp, "cpu"))
+    return trns.DivRoundChain.build(stages), q + specials
+
+
+def run_div_round(fn, x, chain):
+    """The host-compiled K6 on CPU tensors, with the C arguments div_round_cuda
+    passes.  Returns (error code, output)."""
+    p, k, n = len(chain), chain.k, x.shape[-1]
+    out = torch.empty(x.shape[:-2] + (k, n), dtype=tm.I32)
+    err = fn(x.data_ptr(), out.data_ptr(), chain.tab.data_ptr(), x.numel() // ((k + p) * n),
+             k, p, n, None)
+    return err, out
+
+
+@pytest.mark.parametrize("k,p,q_bits", [(1, 1, 29), (12, 1, 29), (30, 1, 29), (1, 4, 29),
+                                        (12, 4, 29), (48, 4, 28), (1, 6, 29), (12, 6, 28),
+                                        (48, 6, 28), (5, 8, 29), (40, 16, 28)])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_div_round_source_on_host_matches_plain(host_libs, k, p, q_bits, n):
+    chain, primes = _chain(k, p, q_bits)
+    rng = np.random.default_rng(k * 10 + p + n)
+    batch = 2
+    x = _residues(rng, primes * batch, (batch * (k + p), n)).view(batch, k + p, n)
+    top = torch.tensor(primes, dtype=tm.I32)[:, None] - 1
+    x[0, :, :2] = 0          # r = floor(P/2) at every stage
+    x[0, :, 2:4] = top       # every residue at its prime's top
+    x[1, -1, :3] = top[-1]   # the last special prime's top under random Q limbs
+    err, got = run_div_round(host_libs["divround"], x, chain)
+    assert err == 0
+    torch.testing.assert_close(got, trns.div_round_chain_plain(x, chain), rtol=0, atol=0)
+    torch.testing.assert_close(got, chain(x), rtol=0, atol=0)
+
+
+def test_div_round_source_on_host_runs_a_long_chain_in_pieces(host_libs):
+    """A chain of 20 stages runs as div_round_cuda runs it: a piece of 16 stages,
+    then one of 4, each a launch, equal to the whole chain's stage loop."""
+    chain, primes = _chain(6, 20, 29)
+    assert [len(c) for c in chain.pieces] == [16, 4]
+    n = 256
+    x = _residues(np.random.default_rng(20), primes * 2, (2 * 26, n)).view(2, 26, n)
+    got = x
+    for piece in chain.pieces:
+        err, got = run_div_round(host_libs["divround"], got, piece)
+        assert err == 0
+    torch.testing.assert_close(got, trns.div_round_chain_plain(x, chain), rtol=0, atol=0)
+
+
+def test_div_round_source_rejects_more_than_sixteen_stages(host_libs):
+    chain, primes = _chain(2, 6, 29)
+    x = torch.zeros((9, 256), dtype=tm.I32)
+    out = torch.empty((2, 256), dtype=tm.I32)
+    assert host_libs["divround"](x.data_ptr(), out.data_ptr(), chain.tab.data_ptr(), 1, 2, 17,
+                                 256, None) != 0
