@@ -40,6 +40,12 @@ Then drives BFV at N=2^15 on the entry point's default chain (29 Q primes,
 Method I) and at the repo's BFV bench shape (Method II), and CKKS with
 Method-I keyswitching (the default of make_context) at N=2^16.
 
+Then drives BGV at N=2^15 on the same 871-bit chain (29 Q primes and one
+special prime, tc128): every division t-exact on K6's t-exact mode.  Phase 13
+also bootstraps on the compressed depth-48 key set, whose stripped keys
+regenerate their uniform halves with K7 (Threefry-2x32, bit-identical to
+jax.random) at every use.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -47,15 +53,18 @@ Phases (each raises on failure, so the script exits non-zero):
      nine shape instantiations, of K1's four pass kernels at each of its
      nine shapes, of K2 base_conv's 18 (each chunk width 4..32 and the
      chunked one for k_in > 32, with and without the fused scaling) and of
-     K6's 16 (p = 1..16); a missing line, or a K1, K2, K5 or K6 instance
-     that spills, fails;
+     K6's 16 (p = 1..16) in each of its two modes, and of K7; a missing line,
+     or a K1, K2, K5, K6 or K7 instance that spills, fails; K7's SASS mix
+     (cuobjdump), which must hold the funnel shifts and xors its bound counts;
   3. K1 (NTT) against its plain torch version on the card, bit for bit,
      forward and inverse, N in {2^8, 2^9, 2^11, ..., 2^16} (2^10 in phase 8):
      each of its nine shape instantiations;
   4. K2 (keyswitch MAC, base conversion with and without the fused
      scaling, also at 5 -> 3, 14 -> 16 and 62 -> 64) and K6 (the ÷P chain: a
      keyswitch's at levels 0 and 1, the encryption's, one stage, 8 stages, 20
-     stages in two launches) against the plain versions; K5 (fused
+     stages in two launches; its t-exact mode at one stage over 29 + 1 limbs
+     at N=2^15, 3 stages and 20) and K7 (a public key's row over 30 limbs at
+     2^15, three rows moved behind 16 limbs) against the plain versions; K5 (fused
      keyswitch) against keyswitch2_fused_core_plain and against the staged
      route (K2 base_conv, K1, K2 mac_keys, K1) at N=2^12 and at N=2^16,
      levels 0 and 1 (a short last digit group at level 1);
@@ -101,7 +110,8 @@ Phases (each raises on failure, so the script exits non-zero):
      tests/test_ckks_boot.py, keys and pieces built on the CPU and moved to
      the card; one regular_bootstrap on the card (every kernel launch at a
      new shape held against plain) must equal the CPU plain path's residues,
-     and decode within 3e-5 of z;
+     and decode within 3e-5 of z; (a') the same on the compressed key set
+     (K7 once per stripped-key use on the card);
  12. bootstrap (b): depth 48 at N=2^13, keys on the card, within 3e-5 (the
      reference's one valid on-chip point read 1.7e-7); the errors between
      the phases (mod_raise overflow, CtoS, EvalMod) printed;
@@ -113,7 +123,15 @@ Phases (each raises on failure, so the script exits non-zero):
      before the script fails); key-generation time and resident bytes; the median
      of 3 bootstraps and of each phase (CUDA events), the device busy time
      and idle share (torch.profiler); K5, mac_keys and base_conv timed at
-     the bootstrap's new shapes.
+     the bootstrap's new shapes.  (c') the same bootstrap on the compressed
+     key set (compress_keys=True, keys from a seeded generator, the same
+     context and secret key): key bytes against the full set's, keygen
+     seconds, no two keys sharing a Threefry key (a_seed mod 2^32; the
+     reference's seed layout collides there), launches counted from 0 and held against plain
+     (K7 must launch, once for each stripped-key use counted in ensure_k1 and
+     predicted by stripped_key_uses), the error within 3e-5, the median of 3,
+     busy and idle share, one regenerated k1 equal to the CPU's plain
+     Threefry, K7 timed at the largest key's shape.
  14. the bootstrapping variants on the JAX package's v2 chain (29-bit q0,
      eighteen 28-bit primes, alpha 4 with six special primes: 25-limb QP
      bases, 5 digits, the last one partial; Chebyshev cosine of degree 24,
@@ -154,9 +172,18 @@ Phases (each raises on failure, so the script exits non-zero):
      and conjugate within TOL_DECODE + 4·keyswitch_noise; mult+relin+rescale,
      rotate and rotate_hoisted equal to the CPU plain path's; per-op medians,
      device busy and idle share, key bytes.
+ 17. BGV: (a) N=256 on tests/test_bgv.py's chain, every entry point on the
+     card against the CPU plain path (DRBG keys on both sides, a seeded relin
+     key used stripped: identical residues, levels and factors); (b) N=2^15 on
+     the 871-bit chain: 8 squarings (multiply -> relinearize -> 2 x
+     mod_switch), rotate_rows by 1, multiply_plain, add_plain, each op's
+     launches held to BGV_OP_LAUNCHES, every launch at a new shape held
+     against plain, decrypted exactly against numpy mod t, the noise budget
+     after each step; per-op medians, busy and idle share, key bytes; K6's
+     t-exact mode and K7 timed at BGV's shapes.
 On every path the calls that end in one ÷P on the card (div_round_sites:
-each keyswitch, each keyswitch finish, each encryption) are counted, and the
-path fails unless K6 launched once for each.  Phase 7 also times K2
+each keyswitch, each keyswitch finish, each encryption, each BGV mod
+switch) are counted, and the path fails unless K6 launched once for each.  Phase 7 also times K2
 mac_keys and base_conv 4 -> 16 (both forms) and K6 on a keyswitch's halves,
 phase 13 base_conv 4 -> 54 and K6 over the 54-limb basis (p = 6), phase 15
 base_conv 29 -> 32 (B = 2 and 3) and 31 -> 29 (both forms) and K6 with one
@@ -176,6 +203,7 @@ Usage: python3 chip_smoke.py   (one CUDA device; no arguments)
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -230,9 +258,13 @@ GATES = {"NAND": lambda a, b: ~(a & b), "AND": lambda a, b: a & b,
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth, and the
 # int32 rate as the published float32 rate over 4 (an FMA counts as 2 flops,
-# and an SM has 64 INT32 lanes against 128 FP32 lanes).
+# and an SM has 64 INT32 lanes against 128 FP32 lanes).  An SM issues one warp
+# instruction per scheduler and clock, 128 lanes: an integer add can issue on
+# the FMA pipe (IMAD.IADD) beside a shift or logic op on the ALU pipe, whose 64
+# lanes are INT32_OPS_PER_S.  K7's bound counts both limits (bound's alu_ops).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+ISSUE_OPS_PER_S = 2 * INT32_OPS_PER_S
 SMS = 132           # SMs of an H100 SXM; K3/K4 run one gate on one SM
 # Lower counts of int32 instructions per unit of work, for the bounds.
 BUTTERFLY_OPS = 6   # Shoup butterfly: a*w, umulhi(a, w'), the -q*p multiply-add, add, sub, select
@@ -240,15 +272,33 @@ SHOUP_OPS = 3       # Shoup product by a table constant
 MAC_OPS = 2         # 32x32 -> 64-bit multiply-accumulate
 FOLD_OPS = 10       # REDC of a 64-bit sum with the Barrett pre-reduction
 DIV_OPS = 2 + SHOUP_OPS  # one ÷P stage on a word: add the rounding constant, subtract r, Shoup
+# one t-exact stage on a word: the Shoup product t·|v|, its fix-up and sign, the
+# addition, the Shoup product by q_last^-1 and its fix-up
+EXACT_OPS = 2 * SHOUP_OPS + 4
+# one word of K7: two Threefry-2x32 hashes (20 rounds of add, funnel shift and xor,
+# five key injections of two adds, the counter add and the closing xor), two Barrett
+# reductions, a Shoup product with its fix-ups and the add; a Montgomery step more.
+# Of these only the ALU pipe runs the funnel shifts (SHF), the xors (LOP3) and each
+# conditional subtraction's compare and select (ISETP, SEL): THREEFRY_ALU_OPS.
+THREEFRY_OPS = 2 * (20 * 3 + 5 * 2 + 2) + 2 * 5 + 9
+THREEFRY_ALU_OPS = 2 * (20 * 2 + 1) + 4 * 2
+MONT_OPS = SHOUP_OPS + 2
+MONT_ALU_OPS = 2
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    """Bytes of the tensors; a stripped key half (None) holds none."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(nbytes_: int, ops: float):
-    """(least ms, "bytes" or "operations") for moving nbytes_ and doing ops."""
-    b_ms, o_ms = nbytes_ / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+def bound(nbytes_: int, ops: float, alu_ops: float = None):
+    """(least ms, "bytes" or "operations") for moving nbytes_ and doing ops,
+    at INT32_OPS_PER_S; or, given the alu_ops of them that only the ALU pipe
+    runs, the larger of those at INT32_OPS_PER_S and all ops at the issue
+    rate."""
+    o_ms = (ops / INT32_OPS_PER_S if alu_ops is None
+            else max(alu_ops / INT32_OPS_PER_S, ops / ISSUE_OPS_PER_S)) * 1e3
+    b_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -275,6 +325,26 @@ def ptxas_summary(log: str, kernel: str) -> dict:
         elif name and kernel in name and ("spill" in line or "registers" in line):
             out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
+
+
+def sass_mix(lib, kernel: str) -> dict:
+    """{opcode with its modifiers: count} of the SASS of the function whose
+    (mangled) name holds `kernel` in the built library, from `cuobjdump -sass`."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    mix, inside = {}, False
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            inside = kernel in m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            mix[m.group(1)] = mix.get(m.group(1), 0) + 1
+    if not mix:
+        raise AssertionError(f"no SASS for {kernel} in {lib}")
+    return mix
 
 
 def fmt_ms(x) -> str:
@@ -364,7 +434,7 @@ def device_idle_share(fn, reps: int, tries: int = 3):
 # are K2's and K6's templates.
 OWN_KERNEL = re.compile(r"\(anonymous namespace\)::((?:ntt_(?:fwd|inv)[12]|mac_keys_kernel|"
                         r"base_conv_kernel|div_round_kernel|keyswitch2_fused_kernel|"
-                        r"blind_rotate_kernel)(?:<[^>]*>)?)\(")
+                        r"blind_rotate_kernel|threefry_uniform_kernel)(?:<[^>]*>)?)\(")
 
 
 def own_kernels(per_kernel: dict) -> dict:
@@ -392,12 +462,15 @@ def kernel_wrappers():
     from heongpu_tpu_torch.ops import ntt as nttm
     from heongpu_tpu_torch.ops import rns
     from heongpu_tpu_torch.ops import tfhe_kernel as tk
+    from heongpu_tpu_torch.utils import threefry
     return [
+        (threefry, "uniform_rns_cuda", lambda *a: "threefry_uniform", threefry.uniform_rns_plain),
         (nttm, "ntt_cuda", lambda x, tb, inverse: "ntt_inv" if inverse else "ntt_fwd",
          lambda x, tb, inverse: (nttm.ntt_inv_plain if inverse else nttm.ntt_fwd_plain)(x, tb)),
         (rns, "mac_keys_cuda", lambda *a: "mac_keys", mac_keys_plain),
         (rns, "base_conv_cuda", lambda *a: "base_conv", rns.base_conv_plain),
-        (rns, "div_round_cuda", lambda *a: "div_round", rns.div_round_chain_plain),
+        (rns, "div_round_cuda", lambda x, chain: "div_exact_t" if chain.exact_t else "div_round",
+         rns.div_round_chain_plain),
         (ksf, "keyswitch2_fused_cuda", lambda *a: "keyswitch2_fused",
          ksf.keyswitch2_fused_core_plain),
         (tk, "blind_rotate_cuda",
@@ -417,6 +490,16 @@ def held_shape(arg):
     return ("stages", len(arg)) if isinstance(arg, rns.DivRoundChain) else None
 
 
+def launch_shapes(name, args):
+    """The shapes that tell a kernel's launches apart: K7's prime count, draw
+    shape and flags (its key is data), every other kernel's held_shape of
+    each argument."""
+    if name == "threefry_uniform":
+        _, primes, shape, _, moved, mont = args
+        return (len(primes), tuple(shape), moved, mont)
+    return tuple(held_shape(a) for a in args if held_shape(a) is not None)
+
+
 @contextlib.contextmanager
 def held_against_plain(what, errs):
     """Runs the block with every kernel wrapper wrapped so that the first launch
@@ -431,7 +514,7 @@ def held_against_plain(what, errs):
         def recorded(*args, _fn=getattr(mod, attr), _namer=namer, _plain=plain):
             out = _fn(*args)
             name = _namer(*args)
-            shapes = tuple(held_shape(a) for a in args if held_shape(a) is not None)
+            shapes = launch_shapes(name, args)
             seen = checked.setdefault(name, {})
             if shapes not in seen:
                 seen[shapes] = e = max_err(out, _plain(*args))
@@ -457,10 +540,13 @@ def held_against_plain(what, errs):
 # The functions that end in exactly one ÷P each, so in one K6 launch when they
 # run on the card: a keyswitch of either route (Method II), a keyswitch finish
 # (Method I's keyswitch_core, the hoisted and accumulated finishes of both
-# methods: ckks.ks_finish_at and BFV's hoisted rotations call it), and an
-# encryption.  (module, function).
+# methods: ckks.ks_finish_at, BFV's hoisted rotations and BGV's keyswitch call
+# it), an encryption, and BGV's mod switch (K6's t-exact mode, as BGV's other
+# divisions).  (module, function).
 DIV_ROUND_SITES = (("ops.keyswitch2", "keyswitch2"), ("models.ringkit", "ks_finish"),
-                   ("models.ckks", "_encrypt_zero_ntt"), ("models.bfv", "encrypt"))
+                   ("models.ckks", "_encrypt_zero_ntt"), ("models.bfv", "encrypt"),
+                   ("models.bgv", "encrypt"), ("models.bgv", "mod_switch"))
+K6_MODES = ("div_round", "div_exact_t")
 
 
 DIV_ROUND_RUNS = {}   # path -> its K6 launches and ÷P sites (div_round_sites)
@@ -490,13 +576,13 @@ def div_round_sites(what):
             return _f(*a, **k)
         saved.append((mod, attr, f))
         setattr(mod, attr, counted)
-    start = kernels.launches["div_round"]
+    start = sum(kernels.launches[k] for k in K6_MODES)
     try:
         yield counts
     finally:
         for mod, attr, f in saved:
             setattr(mod, attr, f)
-    k6 = kernels.launches["div_round"] - start
+    k6 = sum(kernels.launches[k] for k in K6_MODES) - start
     print(f"{what}: K6 div_round launched {k6} times for {sum(counts.values())} ÷P sites {counts}")
     DIV_ROUND_RUNS[what] = {"div_round": k6, "sites": counts}
     if k6 != sum(counts.values()):
@@ -988,10 +1074,10 @@ def boot_key_bytes(keys) -> dict:
             "switch": sum(nbytes(k.k0, k.k1) for k in swk)}
 
 
-def boot_setup(n, q_bits, ctx_kw, cfg_kw, hw, seed, dev, key_dev=None):
+def boot_setup(n, q_bits, ctx_kw, cfg_kw, hw, seed, dev, key_dev=None, compress=False):
     """Context, keys and a ciphertext of z ~ U(-0.5, 0.5) at the last
     base_count limbs.  Keys are made on key_dev (default: dev) from a seeded
-    torch.Generator there."""
+    torch.Generator there; compress=True makes the compressed key set."""
     import torch
     from heongpu_tpu_torch.models import ckks, ckks_boot
     from heongpu_tpu_torch.utils import rng
@@ -1003,7 +1089,7 @@ def boot_setup(n, q_bits, ctx_kw, cfg_kw, hw, seed, dev, key_dev=None):
     cfg = ckks_boot.BootConfig(**cfg_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    keys = ckks_boot.generate_bootstrap_keys(ctx, g, sk, cfg)
+    keys = ckks_boot.generate_bootstrap_keys(ctx, g, sk, cfg, compress_keys=compress)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     z = np.random.default_rng(seed).uniform(-0.5, 0.5, n // 2)
@@ -1178,6 +1264,30 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
         raise AssertionError("bootstrap (a): card and CPU differ, or the error is above the limit")
     rec["n256"] = {"identical_to_cpu": same, "max_abs_err": err_a, "p99_abs_err": p99_a}
     del cctx, csk, ckeys, cct, cpu_out, dctx, out
+    # the same on the compressed key set: the stripped keys regenerate on each side
+    t0 = time.perf_counter()
+    cctx, csk, ckeys, cct, z, _ = boot_setup(256, PREC_Q_BITS, PREC_CTX, PREC_CFG, 16, 21,
+                                             dev, key_dev="cpu", compress=True)
+    cpu_out = ckks_boot.regular_bootstrap(cctx, cct, ckeys)
+    dctx = ckks.make_context(256, PREC_Q_BITS, device=dev, **PREC_CTX)
+    k7 = kernels.launches["threefry_uniform"]
+    with held_against_plain("compressed bootstrap N=256", errs), \
+            div_round_sites("compressed bootstrap N=256"):
+        out = ckks_boot.regular_bootstrap(
+            dctx, ckks.Ciphertext(cct.c.to(dev), cct.size, cct.level, cct.scale),
+            boot_keys_to(ckeys, dev))
+        torch.cuda.synchronize()
+    k7 = kernels.launches["threefry_uniform"] - k7
+    same = torch.equal(out.c.cpu(), cpu_out.c) and out.level == cpu_out.level
+    err_z, _ = boot_error(cctx, csk, cpu_out, z)
+    print(f"bootstrap (a') N=256 on the compressed key set: card residues identical to the CPU "
+          f"plain path's: {same}; {k7} K7 launches for {stripped_key_uses(ckeys)} stripped-key "
+          f"uses; max error {err_z:.3e}; {time.perf_counter() - t0:.1f} s")
+    if not same or k7 != stripped_key_uses(ckeys) or not err_z < TOL_BOOT_PRECISE:
+        raise AssertionError("bootstrap (a'): card and CPU differ, K7 missed a use, or the "
+                             "error is above the limit")
+    rec["n256_compressed"] = {"identical_to_cpu": same, "max_abs_err": err_z, "k7_launches": k7}
+    del cctx, csk, ckeys, cct, cpu_out, dctx, out
 
     # -- 12. (b) depth 48 at n_mid ----------------------------------------------
     t0 = time.perf_counter()
@@ -1282,7 +1392,130 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
         "launches": launches, "profile": boot_prof,
         "plain_device_ms_by_step": steps, "kernels": shapes,
         "seconds": time.perf_counter() - t0}
-    del ctx, sk, keys, ct, out, fargs, dd, k0, k1, zc, x54
+    full_bytes = sum(kb.values())
+    del keys, out, fargs, dd, k0, k1, zc, x54
+    torch.cuda.empty_cache()
+    # -- 13. (c') the same bootstrap on the compressed key set -----------------------
+    launches_z, rec["compressed"] = compressed_bootstrap(
+        ctx, sk, ct, z, ckks_boot.BootConfig(**BOOT_CFG), full_bytes, card, errs)
+    del ctx, sk, ct
+    torch.cuda.empty_cache()
+    return {k: launches[k] + launches_z[k] for k in launches}, rec
+
+
+def stripped_key_uses(keys) -> int:
+    """The keyswitches of one regular_bootstrap, each of which regenerates its
+    stripped key's uniform half (one K7 launch): every piece's distinct
+    nonzero baby steps (rotate_hoisted_qtilde) and nonzero giant steps
+    (rotate_exact), the two conjugations of ctos_finish, and in each of the
+    two eval_exp_sin calls its relinearizations (taylor_degree - 1 Horner
+    products, exp_squarings squarings, two more with the arcsine term) and
+    its conjugation."""
+    cfg = keys.cfg
+    rot = sum(len({b for _, babies, _ in p.giants for b in babies if b})
+              + sum(1 for g, _, _ in p.giants if g)
+              for p in keys.ctos_pieces + keys.stoc_pieces)
+    relins = cfg.taylor_degree - 1 + cfg.exp_squarings + (2 if cfg.arcsin_order else 0)
+    return rot + 2 + 2 * (relins + 1)
+
+
+def compressed_bootstrap(ctx, sk, ct, z, cfg, full_bytes, card, errs):
+    """Phase 13 (c'): the depth-48 bootstrap on the compressed key set
+    (generate_bootstrap_keys(compress_keys=True): every Galois and relin key
+    stored stripped, its uniform half regenerated by K7 at each use).  Key
+    bytes against the full set's, keygen seconds, no two keys sharing a
+    Threefry key (a_seed mod 2^32, where the reference's layout collides); one bootstrap with
+    launches counted from 0, every launch at a new shape held against plain,
+    K7's launches equal to the stripped-key uses counted in ensure_k1 and to
+    stripped_key_uses; the error within TOL_BOOT_PRECISE; the median of 3 and
+    the device busy time and idle share; one regenerated k1 on the card equal
+    to the CPU's plain Threefry; K7 timed at the largest key's shape.  Returns
+    (launches of the bootstrap, record)."""
+    import torch
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks, ckks_boot, ringkit
+    from heongpu_tpu_torch.utils import rng, threefry
+    t0 = time.perf_counter()
+    n = ctx.n
+    g = rng.new_generator(24, ctx.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    keys = ckks_boot.generate_bootstrap_keys(ctx, g, sk, cfg, compress_keys=True)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t1
+    kb = boot_key_bytes(keys)
+    seeded = list(keys.gk.keys.values()) + [keys.rk]
+    residues = [k.a_seed % 2 ** 32 for k in seeded]
+    sharing = sum(1 for r in residues if residues.count(r) > 1)
+    predicted = stripped_key_uses(keys)
+    print(f"bootstrap (c') N={n} compressed: keygen {keygen_s:.1f} s; {len(keys.gk.keys)} Galois "
+          f"keys {kb['galois'] / 1e9:.3f} GB, relin {kb['relin'] / 1e9:.3f} GB, diagonals "
+          f"{kb['diagonals'] / 1e9:.3f} GB: {sum(kb.values()) / 1e9:.3f} GB against the full "
+          f"set's {full_bytes / 1e9:.3f} GB; {sharing} of {len(seeded)} keys share their a_seed "
+          f"mod 2^32 with another (one Threefry key)")
+    if sharing:
+        raise AssertionError(f"compressed key set: {sharing} keys share a Threefry key")
+    uses, ensure = [0], ringkit.ensure_k1
+
+    def counting(ring, kk):
+        uses[0] += kk.k1 is None
+        return ensure(ring, kk)
+    ringkit.ensure_k1 = counting
+    try:
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        with held_against_plain(f"compressed bootstrap N={n}", errs), \
+                div_round_sites(f"compressed bootstrap N={n}"):
+            out = ckks_boot.regular_bootstrap(ctx, ct, keys)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+    finally:
+        ringkit.ensure_k1 = ensure
+    k7 = launches["threefry_uniform"]
+    print(f"bootstrap (c') main path, held against plain: {time.perf_counter() - t1:.1f} s, "
+          f"launches {launches}; K7 launched {k7} times for {uses[0]} stripped-key uses "
+          f"(predicted {predicted})")
+    require_launched("compressed bootstrap", launches,
+                     ("ntt_fwd", "ntt_inv", "keyswitch2_fused", "mac_keys", "base_conv",
+                      "threefry_uniform"))
+    if not k7 == uses[0] == predicted:
+        raise AssertionError(f"compressed bootstrap: {k7} K7 launches, {uses[0]} stripped-key "
+                             f"uses, {predicted} predicted")
+    err, p99 = boot_error(ctx, sk, out, z)
+    print(f"bootstrap (c') max error {err:.3e} (limit {TOL_BOOT_PRECISE}), p99 {p99:.3e} [{card}]")
+    if not err < TOL_BOOT_PRECISE:
+        raise AssertionError(f"compressed bootstrap: error {err} above {TOL_BOOT_PRECISE}")
+    ms, phase_ms, runs = time_bootstrap(ctx, keys, ct)
+    print(f"time compressed bootstrap N={n}: {ms:.3f} ms (median of {len(runs)}: "
+          + ", ".join(f"{r:.3f}" for r in runs) + "); phases "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phase_ms.items()) + f" ms [{card}]")
+    prof = {}
+    print_profile(f"compressed bootstrap N={n}", lambda: ckks_boot.regular_bootstrap(ctx, ct, keys),
+                  1, card, prof, "bootstrap")
+    # one regenerated k1 (the smallest key's) against the CPU's plain Threefry
+    small = min(keys.gk.keys.values(), key=lambda k: k.k0.numel())
+    ring = ckks._key_ring(ctx, small)
+    on_card = ringkit.ensure_k1(ring, small).cpu()
+    on_cpu = threefry.uniform_rns_plain(threefry.key_from_seed(small.a_seed), ring.qp_primes,
+                                        (small.k0.shape[0], n), "cpu", True, True)
+    same = torch.equal(on_card, on_cpu)
+    print(f"bootstrap (c') k1 of the {tuple(small.k0.shape)} key regenerated on the card equal "
+          f"to the CPU's plain Threefry: {same}")
+    if not same:
+        raise AssertionError("compressed bootstrap: K7's k1 differs from the CPU's")
+    errs["threefry_uniform"] = max(errs["threefry_uniform"], int((on_card.long() - on_cpu.long())
+                                                                 .abs().max()))
+    big = max(seeded, key=lambda k: k.k0.numel())
+    kern = time_kernels(threefry_shapes(ckks._key_ring(ctx, big).qp_primes,
+                                        (big.k0.shape[0], n), ctx.device,
+                                        "bootstrap key", seed=big.a_seed),
+                        "the compressed bootstrap's", n, card, errs)
+    rec = {"keygen_s": keygen_s, "key_bytes": kb, "full_key_bytes": full_bytes,
+           "keys_sharing_a_threefry_key": sharing, "keys": len(seeded), "launches": launches,
+           "stripped_key_uses": uses[0], "predicted_uses": predicted, "max_abs_err": err,
+           "p99_abs_err": p99, "ms": ms, "runs_ms": runs, "phase_ms": phase_ms, "profile": prof,
+           "k1_identical_to_cpu": same, "kernels": kern, "seconds": time.perf_counter() - t0}
+    del keys, out
     torch.cuda.empty_cache()
     return launches, rec
 
@@ -1998,6 +2231,270 @@ def ckks_method1_phase(dev, card, errs, n=N):
     return launches, rec
 
 
+# BGV (phase 17): every division t-exact, on K6's t-exact mode.  The full-width
+# chain is the default 128-bit one of BFV phase 15: 29 Q primes of 29 bits and
+# one 30-bit special prime (871 bits, tc128 at N=2^15), t = plain_modulus_for(N, 20).
+BGV_N = 1 << 15
+BGV_Q_BITS = [29] * 29
+BGV_SEC = "tc128"
+BGV_SMALL_Q_BITS = [29] * 4     # tests/test_bgv.py's chain: the N=256 card-against-CPU run
+# Squarings at full width, each multiply -> relinearize -> mod_switch -> mod_switch: a
+# square's noise is about N·e^2, and one switch (29 bits) would leave the noise's bit
+# count nearly doubled at every step (the chain's 841 Q bits run out after five
+# squarings); two switches bring it back to the rounding noise t·|s| of a switch.
+BGV_CHAIN = 8
+BGV_SWITCHES = 2
+# The launches of each BGV op on the card (K1 both ways, K2 mac_keys, K6 t-exact):
+# multiply transforms both operands and inverts the three products; a keyswitch
+# (relinearize, a rotation) transforms the digits, MACs, inverts and divides;
+# encryption transforms u, inverts both halves and divides; mod_switch divides.
+BGV_OP_LAUNCHES = {
+    "encrypt": {"ntt_fwd": 1, "ntt_inv": 1, "div_exact_t": 1},
+    "multiply": {"ntt_fwd": 2, "ntt_inv": 1},
+    "relinearize": {"ntt_fwd": 1, "mac_keys": 1, "ntt_inv": 1, "div_exact_t": 1},
+    "mod_switch": {"div_exact_t": 1},
+    "rotate_rows": {"ntt_fwd": 1, "mac_keys": 1, "ntt_inv": 1, "div_exact_t": 1},
+    "multiply_plain": {"ntt_fwd": 2, "ntt_inv": 1},
+    "add_plain": {},
+    "decrypt": {"ntt_fwd": 1, "ntt_inv": 1},
+}
+
+
+def div_exact_bound(x, chain):
+    """K6's bound in its t-exact mode on x (B, k+p, N): x, the table and the
+    output once; each stage's centered v per column and update of each Q word
+    and of the special words still present."""
+    p, k, n = len(chain), chain.k, x.shape[-1]
+    b = x.numel() // ((k + p) * n)
+    return bound(nbytes(x, chain.tab) + b * k * n * 4,
+                 b * n * ((k * p + p * (p - 1) // 2) * EXACT_OPS + p * (SHOUP_OPS + 3)))
+
+
+def exact_shapes(chain, x, label):
+    """A time_kernels entry for K6's t-exact mode on x."""
+    from heongpu_tpu_torch.ops import rns
+    return {f"div_exact_t {label}": (
+        lambda: rns.div_round_cuda(x, chain), lambda: rns.div_round_chain_plain(x, chain),
+        f"{tuple(x.shape)} -> {tuple(x.shape[:-2]) + (chain.k, x.shape[-1])}, p={len(chain)}",
+        div_exact_bound(x, chain))}
+
+
+def threefry_shapes(primes, shape, dev, label, seed=2 ** 34 + 13):
+    """A time_kernels entry for K7: a seeded key's uniform half at `shape`
+    ((d, n), moved behind the digit axis, Montgomery form), with its bound:
+    the words written once (K7 reads nothing but its key and table) against
+    its operations."""
+    from heongpu_tpu_torch.utils import threefry
+    key = threefry.key_from_seed(seed)
+    words = len(primes) * int(np.prod(shape))
+    return {f"threefry_uniform {label}": (
+        lambda: threefry.uniform_rns_cuda(key, primes, shape, dev, True, True),
+        lambda: threefry.uniform_rns_plain(key, primes, shape, dev, True, True),
+        f"{tuple(shape)} x {len(primes)} limbs -> {(shape[0], len(primes)) + tuple(shape[1:])}",
+        bound(words * 4 + len(primes) * 16, words * (THREEFRY_OPS + MONT_OPS),
+              words * (THREEFRY_ALU_OPS + MONT_ALU_OPS)))}
+
+
+def bgv_entry_points(ctx, m1, m2):
+    """{name: tensor} of every BGV entry point on ctx's device, keys and
+    randomness from one DRBG seed (host draws, so a CPU and a card context get
+    the same numbers); {name: (level, factor)} of the ciphertexts; the noise
+    budgets."""
+    from heongpu_tpu_torch.models import bgv, ringkit
+    from heongpu_tpu_torch.utils import rng
+    d = rng.new_drbg(b"chip_smoke phase 17 BGV entropy.")
+    sk = bgv.keygen_secret(ctx, d)
+    pk = bgv.keygen_public(ctx, d, sk)
+    rk = bgv.keygen_relin(ctx, d, sk)
+    rk_seeded = bgv.keygen_relin(ctx, d, sk, a_seed=2 ** 34 + 17)
+    gk = bgv.keygen_galois(ctx, d, sk, steps=[1, 2])
+    gki = bgv.keygen_galois(ctx, d, sk, steps=[1], inv_form=True)
+    g1 = bgv.polyops.steps_to_galois_elt(1, ctx.n)
+    p1, p2 = bgv.encode(ctx, m1), bgv.encode(ctx, m2)
+    c1, c2 = bgv.encrypt(ctx, pk, p1, d), bgv.encrypt(ctx, pk, p2, d)
+    prod = bgv.multiply(ctx, c1, c2)
+    cts = {"encrypt": c1, "add": bgv.add(ctx, c1, c2), "sub": bgv.sub(ctx, c1, c2),
+           "negate": bgv.negate(ctx, c1), "add_plain": bgv.add_plain(ctx, c1, p2),
+           "sub_plain": bgv.sub_plain(ctx, c1, p2),
+           "multiply_plain": bgv.multiply_plain(ctx, c1, p2), "multiply": prod,
+           "relinearize": bgv.relinearize(ctx, prod, rk),
+           "relinearize_stripped_seeded": bgv.relinearize(ctx, prod,
+                                                          ringkit.strip_seeded(rk_seeded)),
+           "apply_galois": bgv.apply_galois(ctx, c1, gk.keys[g1]),
+           "apply_galois_inv": bgv.apply_galois(ctx, c1, gki.keys[g1]),
+           "rotate_rows_3": bgv.rotate_rows(ctx, c1, gk, 3)}
+    a, b = c1, c2
+    for level in (1, 2):
+        a, b = bgv.mod_switch(ctx, a), bgv.mod_switch(ctx, b)
+        cts[f"mod_switch_{level}"] = a
+        cts[f"mult_relin_level_{level}"] = bgv.relinearize(ctx, bgv.multiply(ctx, a, b), rk)
+        cts[f"add_plain_level_{level}"] = bgv.add_plain(ctx, a, p2)
+        cts[f"rotate_rows_1_level_{level}"] = bgv.rotate_rows(ctx, a, gk, 1)
+    out = {k: c.c for k, c in cts.items()}
+    out.update(keygen_secret=sk.s_ntt_mont_qp, keygen_public=pk.pk0, keygen_relin=rk.k0,
+               keygen_relin_seeded=rk_seeded.k1, keygen_galois=gk.keys[g1].k0,
+               keygen_galois_inv=gki.keys[g1].k0, encode=p1,
+               decrypt=bgv.decrypt(ctx, sk, cts["relinearize"]),
+               decrypt_level_2=bgv.decrypt(ctx, sk, cts["mult_relin_level_2"]))
+    meta = {k: (c.level, c.factor) for k, c in cts.items()}
+    budgets = (bgv.noise_budget(ctx, sk, c1), bgv.noise_budget(ctx, sk, cts["relinearize"]),
+               bgv.noise_budget(ctx, sk, cts["mult_relin_level_2"]))
+    return out, meta, budgets
+
+
+def bgv_phases(dev, card, errs, gen, n_small=256, n_full=BGV_N):
+    """Phase 17: BGV.  (a) n_small: every entry point on the card against the
+    CPU plain path, keys from one DRBG seed on both sides: identical residues,
+    levels and factors, noise budgets within 1e-9 bits; (b) n_full on the
+    871-bit tc128 chain: BGV_CHAIN squarings (multiply -> relinearize ->
+    BGV_SWITCHES x mod_switch), then
+    rotate_rows by 1, multiply_plain and add_plain, each op's launches counted
+    and held to BGV_OP_LAUNCHES, every launch at a new shape held against
+    plain, K6's launches against BGV's division sites, decrypted exactly against
+    numpy slot arithmetic mod t, the noise budget after each step; per-op
+    medians (CUDA events), device busy and idle share, key bytes; K6's t-exact
+    mode and K7 timed at BGV's shapes.  Returns (the launches of (b)'s run;
+    record; the kernel timings)."""
+    import torch
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import bgv
+    from heongpu_tpu_torch.utils import params, rng
+    rec = {}
+
+    # -- 17. (a) card against CPU at n_small ------------------------------------------
+    t0 = time.perf_counter()
+    t_small = params.plain_modulus_for(n_small, 20)
+    r = np.random.default_rng(17)
+    m1, m2 = r.integers(0, t_small, n_small), r.integers(0, t_small, n_small)
+    mk = lambda d: bgv.make_context(n_small, t_small, q_bits=BGV_SMALL_Q_BITS, device=d)
+    cpu_out, cpu_meta, cpu_nb = bgv_entry_points(mk("cpu"), m1, m2)
+    with held_against_plain(f"BGV N={n_small}", errs), div_round_sites(f"BGV N={n_small}"):
+        out, meta, nb = bgv_entry_points(mk(dev), m1, m2)
+        torch.cuda.synchronize()
+    diff = [k for k in out if not torch.equal(out[k].cpu(), cpu_out[k])]
+    diff += [k for k in meta if meta[k] != cpu_meta[k]]
+    print(f"BGV (a) N={n_small}, {len(BGV_SMALL_Q_BITS)} x 29-bit Q: {len(out)} entry-point "
+          f"outputs and {len(meta)} (level, factor) pairs on the card identical to the CPU plain "
+          f"path's: {not diff} {diff or ''}; noise budget fresh / after mult+relin / at level 2 "
+          f"{nb[0]:.6f} / {nb[1]:.6f} / {nb[2]:.6f} bits (CPU {cpu_nb[0]:.6f} / {cpu_nb[1]:.6f} / "
+          f"{cpu_nb[2]:.6f}); {time.perf_counter() - t0:.1f} s")
+    if diff or max(abs(a - b) for a, b in zip(nb, cpu_nb)) > 1e-9:
+        raise AssertionError(f"BGV (a): card and CPU differ: {diff} {nb} {cpu_nb}")
+    rec[f"n{n_small}"] = {"identical_to_cpu": True, "noise_budget": nb,
+                          "seconds": time.perf_counter() - t0}
+
+    # -- 17. (b) the 871-bit chain at n_full -----------------------------------------
+    t0 = time.perf_counter()
+    t = params.plain_modulus_for(n_full, 20)
+    ctx = bgv.make_context(n_full, t, q_bits=BGV_Q_BITS, sec_level=BGV_SEC, device=dev)
+    bits = sum(q.bit_length() for q in ctx.qp_primes)
+    g = rng.new_generator(171, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sk = bgv.keygen_secret(ctx, g)
+    pk = bgv.keygen_public(ctx, g, sk)
+    rk = bgv.keygen_relin(ctx, g, sk)
+    gk = bgv.keygen_galois(ctx, g, sk, steps=[1])
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t1
+    key_bytes = {"relin": nbytes(rk.k0, rk.k1),
+                 "galois": sum(nbytes(k.k0, k.k1) for k in gk.keys.values())}
+    print(f"BGV (b) context N={n_full}: {ctx.k} Q primes of 29 bits and {len(ctx.p_primes)} "
+          f"special, {bits} bits, t={t}; keygen {keygen_s:.2f} s, relin key "
+          f"{key_bytes['relin'] / 1e6:.1f} MB, {len(gk.keys)} Galois keys "
+          f"{key_bytes['galois'] / 1e6:.1f} MB [{card}]")
+    half = n_full // 2
+    r = np.random.default_rng(18)
+    m1, m2, m3 = (r.integers(0, t, n_full) for _ in range(3))
+    p2, p3 = bgv.encode(ctx, m2), bgv.encode(ctx, m3)
+    op_launches, budgets = {}, []
+
+    def op(name, fn, *args):
+        before = dict(kernels.launches)
+        res = fn(ctx, *args)
+        got = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+        op_launches.setdefault(name, []).append(got)
+        if got != BGV_OP_LAUNCHES[name]:
+            raise AssertionError(f"BGV {name} launched {got}, predicted {BGV_OP_LAUNCHES[name]}")
+        return res
+
+    want = m1 % t
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with held_against_plain(f"BGV N={n_full}", errs), div_round_sites(f"BGV N={n_full}"):
+        c = op("encrypt", bgv.encrypt, pk, bgv.encode(ctx, m1), g)
+        budgets.append(("fresh", c.level, bgv.noise_budget(ctx, sk, c)))
+        for i in range(BGV_CHAIN):
+            c = op("multiply", bgv.multiply, c, c)
+            c = op("relinearize", bgv.relinearize, c, rk)
+            for _ in range(BGV_SWITCHES):
+                c = op("mod_switch", bgv.mod_switch, c)
+            want = want * want % t
+            budgets.append((f"square {i + 1}", c.level, bgv.noise_budget(ctx, sk, c)))
+        c = op("rotate_rows", bgv.rotate_rows, c, gk, 1)
+        want = np.concatenate([np.roll(want[:half], -1), np.roll(want[half:], -1)])
+        budgets.append(("rotate_rows 1", c.level, bgv.noise_budget(ctx, sk, c)))
+        c = op("multiply_plain", bgv.multiply_plain, c, p2)
+        want = want * m2 % t
+        budgets.append(("multiply_plain", c.level, bgv.noise_budget(ctx, sk, c)))
+        c = op("add_plain", bgv.add_plain, c, p3)
+        want = (want + m3) % t
+        budgets.append(("add_plain", c.level, bgv.noise_budget(ctx, sk, c)))
+        dec = bgv.decode(ctx, op("decrypt", bgv.decrypt, sk, c))
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    exact = np.array_equal(dec, want.astype(np.uint32))
+    print(f"BGV (b) main path N={n_full}: {time.perf_counter() - t1:.1f} s, launches {launches}; "
+          f"each op's launches as predicted {BGV_OP_LAUNCHES}; {BGV_CHAIN} x (multiply -> "
+          f"relinearize -> {BGV_SWITCHES} x mod_switch), rotate_rows 1, multiply_plain, add_plain "
+          f"decrypt exactly "
+          f"against numpy mod t: {exact}; level {c.level}, factor {c.factor}; noise budget "
+          + ", ".join(f"{w} (level {lv}) {b:.3f}" for w, lv, b in budgets) + f" bits [{card}]")
+    if not exact or not budgets[-1][2] > 0:
+        raise AssertionError("BGV (b): the chain decrypts wrong or its noise budget is spent")
+    require_launched("BGV chain", launches, ("ntt_fwd", "ntt_inv", "mac_keys", "div_exact_t"))
+    # per-op medians at level 0, and the profile of mult+relin and of a rotation
+    c1 = bgv.encrypt(ctx, pk, bgv.encode(ctx, m1), g)
+    c2 = bgv.encrypt(ctx, pk, p2, g)
+    prod = bgv.multiply(ctx, c1, c2)
+    rel = bgv.relinearize(ctx, prod, rk)
+    ops = {"encrypt": lambda: bgv.encrypt(ctx, pk, p2, g),
+           "multiply": lambda: bgv.multiply(ctx, c1, c2),
+           "relinearize": lambda: bgv.relinearize(ctx, prod, rk),
+           "mod_switch": lambda: bgv.mod_switch(ctx, rel),
+           "mult_relin_mod_switch": lambda: bgv.mod_switch(
+               ctx, bgv.relinearize(ctx, bgv.multiply(ctx, c1, c2), rk)),
+           "rotate_rows_1": lambda: bgv.rotate_rows(ctx, c1, gk, 1),
+           "multiply_plain": lambda: bgv.multiply_plain(ctx, c1, p2),
+           "add_plain": lambda: bgv.add_plain(ctx, c1, p3),
+           "decrypt": lambda: bgv.decrypt(ctx, sk, rel)}
+    ms = {k: median_ms(fn) for k, fn in ops.items()}
+    print(f"time BGV N={n_full} level 0, ms (median of 7): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]")
+    prof = {}
+    print_profile(f"BGV mult+relin+mod_switch N={n_full}", ops["mult_relin_mod_switch"], 3, card,
+                  prof, "mult_relin")
+    print_profile(f"BGV rotate_rows by 1 N={n_full}", ops["rotate_rows_1"], 3, card, prof,
+                  "rotate_rows_1")
+    # K6 t-exact on a keyswitch's two halves (2, 30, 2^15) -> (2, 29) and on a mod
+    # switch's (2, 29, 2^15) -> (2, 28); K7 at the relin key's shape (29 digits, 30 limbs)
+    qp = list(ctx.qp_primes)
+    x30 = rand_residues(qp * 2, (2 * len(qp), n_full), gen, dev).view(2, len(qp), n_full)
+    x29 = rand_residues(qp[:-1] * 2, (2 * ctx.k, n_full), gen, dev).view(2, ctx.k, n_full)
+    shapes = exact_shapes(ctx.div_p_lvl[0].chain, x30, "keyswitch")
+    shapes.update(exact_shapes(ctx.mod_sw[0].chain, x29, "mod_switch"))
+    shapes.update(threefry_shapes(qp, (ctx.k, n_full), dev, "BGV relin key"))
+    kern = time_kernels(shapes, "BGV's", n_full, card, errs)
+    rec[f"n{n_full}"] = {"q_primes": ctx.k, "bits": bits, "t": t, "launches": launches,
+                         "op_launches": {k: v[0] for k, v in op_launches.items()},
+                         "noise_budget": budgets, "exact": exact, "keygen_s": keygen_s,
+                         "key_bytes": key_bytes, "ms": ms, "profile": prof, "kernels": kern,
+                         "seconds": time.perf_counter() - t0}
+    del ctx, sk, pk, rk, gk, c, c1, c2, prod, rel, ops, x30, x29
+    torch.cuda.empty_cache()
+    return launches, rec, kern
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2060,16 +2557,38 @@ def run(dev) -> int:
         kp, scaled, chunked = re.search(r"base_conv_kernelILi(\d+)ELb([01])ELb([01])E", fn).groups()
         k2k6_ptxas[("base_conv", int(kp), scaled == "1", chunked == "1")] = line
     for fn, line in ptxas_summary(log, "div_round_kernel").items():
-        k2k6_ptxas[("div_round", int(re.search(r"div_round_kernelILi(\d+)E", fn).group(1)))] = line
+        p_, exact = re.search(r"div_round_kernelILi(\d+)ELb([01])E", fn).groups()
+        k2k6_ptxas[("div_exact_t" if exact == "1" else "div_round", int(p_))] = line
     for key, line in sorted(k2k6_ptxas.items()):
         print(f"ptxas {'mac.cu' if key[0] == 'base_conv' else 'divround.cu'} {key}: {line}")
-    if log and len(k2k6_ptxas) != 2 * 9 + rns.DIV_ROUND_MAX_STAGES:
+    if log and len(k2k6_ptxas) != 2 * 9 + 2 * rns.DIV_ROUND_MAX_STAGES:
         raise AssertionError(f"no ptxas line for each of K2 base_conv's nine instances "
-                             f"(both forms) and K6's stage counts: {k2k6_ptxas}")
+                             f"(both forms) and K6's stage counts in both modes: {k2k6_ptxas}")
+    k7_ptxas = list(ptxas_summary(log, "threefry_uniform_kernel").values())
+    for line in k7_ptxas:
+        print(f"ptxas threefry.cu threefry_uniform: {line}")
+    if log and len(k7_ptxas) != 1:
+        raise AssertionError(f"no ptxas line for K7: {k7_ptxas}")
+    if k7_ptxas:
+        ptxas["threefry_uniform"] = k7_ptxas[0]
+    # K7's bound takes 2 x 20 funnel shifts and 2 x 21 xors a word as ALU-only work:
+    # the compiled kernel must hold at least those (it runs straight through a word)
+    k7_sass = sass_mix(path, "threefry_uniform_kernel")
+    shf = sum(v for k, v in k7_sass.items() if k.startswith("SHF.L.W"))
+    lop3 = k7_sass.get("LOP3.LUT", 0)
+    print(f"SASS threefry.cu threefry_uniform: {sum(k7_sass.values())} instructions; "
+          f"{shf} funnel shifts, {lop3} LOP3, "
+          f"{sum(v for k, v in k7_sass.items() if k.startswith('IMAD'))} IMAD (FMA pipe), "
+          f"{sum(v for k, v in k7_sass.items() if k.startswith('IADD3'))} IADD3; "
+          + json.dumps(dict(sorted(k7_sass.items(), key=lambda kv: -kv[1]))))
+    if shf < 2 * 20 or lop3 < 2 * 21:
+        raise AssertionError(f"K7's SASS holds fewer shifts or xors than its bound counts: "
+                             f"{shf} SHF.L.W, {lop3} LOP3.LUT")
     spills = [k for k, line in list(ks_ptxas.items()) + list(ntt_ptxas.items())
-              + list(k2k6_ptxas.items()) if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+              + list(k2k6_ptxas.items()) + [("threefry_uniform", ln) for ln in k7_ptxas]
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
-        raise AssertionError(f"K1, K2, K5 or K6 instances spill: {spills}")
+        raise AssertionError(f"K1, K2, K5, K6 or K7 instances spill: {spills}")
     for d in ("fwd", "inv"):
         if (f"ntt_{d}1", 256, 256) in ntt_ptxas:
             ptxas[f"ntt_{d}"] = "; ".join(f"pass {k}: {ntt_ptxas[(f'ntt_{d}{k}', 256, 256)]}"
@@ -2185,9 +2704,32 @@ def run(dev) -> int:
         e = max_err(rns.div_round_cuda(x, chain), rns.div_round_chain_plain(x, chain))
         errs["div_round"] = max(errs["div_round"], e)
         print(f"K6 div_round ({tuple(x.shape)}, p={p}, {len(chain.pieces)} launches): err={e}")
+    # K6's t-exact mode (BGV's divisions): one stage over 29 + 1 limbs at N=2^15 (a BGV
+    # keyswitch), three stages and twenty (two launches) at N=4096; K7 (the seeded keys'
+    # draw): a public key's row and d rows moved behind the limb axis, in Montgomery form
+    from heongpu_tpu_torch.utils import threefry
+    t_bgv = nt.generate_ntt_primes(20, 1, 1 << 15)[0]
+    pr15 = nt.generate_ntt_primes(29, 30, 1 << 15)
+    for k, p, primes, n_ in ((29, 1, pr15, 1 << 15), (12, 3, pr, 4096), (6, 20, pr, 4096)):
+        stages, remaining = [], primes[:k + p]
+        for sp in reversed(primes[k:k + p]):
+            remaining = remaining[:-1]
+            stages.append(rns.DivExactT.build(remaining, sp, t_bgv, dev))
+        chain = rns.DivRoundChain.build(stages)
+        x = rand_residues(primes[:k + p] * 2, (2 * (k + p), n_), gen, dev).view(2, k + p, n_)
+        e = max_err(rns.div_round_cuda(x, chain), rns.div_round_chain_plain(x, chain))
+        errs["div_exact_t"] = max(errs["div_exact_t"], e)
+        print(f"K6 div_exact_t ({tuple(x.shape)}, p={p}, {len(chain.pieces)} launches): err={e}")
+    for primes, shape, moved in ((pr15, (1 << 15,), False), (pr[:16], (3, 4096), True)):
+        key = threefry.key_from_seed(2 ** 43 + len(primes))
+        e = max_err(threefry.uniform_rns_cuda(key, primes, shape, dev, moved, True),
+                    threefry.uniform_rns_plain(key, primes, shape, dev, moved, True))
+        errs["threefry_uniform"] = max(errs["threefry_uniform"], e)
+        print(f"K7 threefry_uniform ({len(primes)} limbs, {shape}, moved={moved}): err={e}")
     torch.cuda.synchronize()
-    if errs["mac_keys"] or errs["base_conv"] or errs["div_round"]:
-        raise AssertionError("K2 or K6 disagrees with its plain version")
+    if any(errs[k] for k in ("mac_keys", "base_conv", "div_round", "div_exact_t",
+                             "threefry_uniform")):
+        raise AssertionError("K2, K6 or K7 disagrees with its plain version")
 
     small = ckks.make_context(1 << 12, Q_BITS, ks_type="II", alpha=ALPHA, device=dev)
     for c, level in ((small, 0), (small, 1), (ctx, 0), (ctx, 1)):
@@ -2351,10 +2893,18 @@ def run(dev) -> int:
         ntt_recs[name] += recs
     # -- 16. CKKS with Method-I keyswitching ------------------------------------------
     m1_launches, m1_rec = ckks_method1_phase(dev, card, errs)
-    # each kernel's launches on the seven paths, each run counted from 0 just before it
+    # -- 17. BGV ------------------------------------------------------------------------
+    bgv_launches, bgv_rec, bgv_kern = bgv_phases(dev, card, errs, gen)
+    # each kernel's launches on the nine paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
-                + v2_launches[k] + bfv_launches[k] + m1_launches[k] for k in launches}
+                + v2_launches[k] + bfv_launches[k] + m1_launches[k] + bgv_launches[k]
+                for k in launches}
+    # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's
+    k7_kern = boot_rec["compressed"]["kernels"]
+    for name, r in (("div_exact_t", bgv_kern["div_exact_t keyswitch"]),
+                    ("threefry_uniform", next(iter(k7_kern.values())))):
+        times[name], bounds[name] = (r["ms"], r["plain_ms"]), (r["bound_ms"], r["bound_by"])
     times.update(tfhe_times)
     bounds.update(tfhe_bounds)
 
@@ -2372,6 +2922,10 @@ def run(dev) -> int:
                                  "heongpu_tpu/ops/tfhe_kernel.py:572"),
                "div_round": ("heongpu_tpu_torch/kernels/csrc/divround.cu",
                              "heongpu_tpu/ops/rns.py:226"),
+               "div_exact_t": ("heongpu_tpu_torch/kernels/csrc/divround.cu",
+                               "heongpu_tpu/models/bgv.py:54"),
+               "threefry_uniform": ("heongpu_tpu_torch/kernels/csrc/threefry.cu",
+                                    "heongpu_tpu/utils/rng.py:127"),
                "keyswitch2_fused": ("heongpu_tpu_torch/kernels/csrc/keyswitch.cu",
                                     "heongpu_tpu/ops/keyswitch_pallas.py:148")}
     kernels_rec = [
@@ -2384,19 +2938,24 @@ def run(dev) -> int:
                            ratio_to_staged=ks_levels[0]["ratio_to_staged"],
                            device_ms=ks_levels[0]["device_ms"], level1=ks_levels[1])
     # K2 and K6: the device time at the main path's shape, and every timed shape
-    boot_full, v2_full = list(boot_rec.values())[-1], list(v2_rec.values())[-1]
+    boot_full = [r for k, r in boot_rec.items() if k != "compressed"][-1]
+    boot_z, v2_full = boot_rec["compressed"], list(v2_rec.values())[-1]
     bfv_default = next(r for k, r in bfv_rec.items() if k.endswith("_default"))
     # every timed shape under its phase's name: the phases time a kernel under
     # the same labels
     k_shapes = {f"{phase}: {lbl}": (lbl.split()[0], r)
                 for phase, recs in (("main", k2k6), ("bootstrap", boot_full["kernels"]),
-                                    ("bfv", bfv_default["kernels"]))
+                                    ("bfv", bfv_default["kernels"]), ("bgv", bgv_kern),
+                                    ("compressed bootstrap", k7_kern))
                 for lbl, r in recs.items()}
-    main_label = {"mac_keys": "mac_keys", "base_conv": "base_conv 4->16 B=1 scaled",
-                  "div_round": "div_round keyswitch"}
+    main_label = {"mac_keys": ("main", "mac_keys"),
+                  "base_conv": ("main", "base_conv 4->16 B=1 scaled"),
+                  "div_round": ("main", "div_round keyswitch"),
+                  "div_exact_t": ("bgv", "div_exact_t keyswitch"),
+                  "threefry_uniform": ("compressed bootstrap", next(iter(k7_kern)))}
     for k in kernels_rec:
         if k["name"] in main_label:
-            k.update(device_ms=k2k6[main_label[k["name"]]]["device_ms"],
+            k.update(device_ms=k_shapes[": ".join(main_label[k["name"]])][1]["device_ms"],
                      shapes={lbl: r for lbl, (name, r) in k_shapes.items() if name == k["name"]})
         if k["name"] in ntt_recs:
             first = ntt_recs[k["name"]][0]
@@ -2417,15 +2976,19 @@ def run(dev) -> int:
               "bootstrap_v2_launches": v2_launches, "bootstrap_v2": v2_rec,
               "bfv_launches": bfv_launches, "bfv": bfv_rec,
               "ckks_method1_launches": m1_launches, "ckks_method1": m1_rec,
+              "bgv_launches": bgv_launches, "bgv": bgv_rec,
               "div_round_runs": DIV_ROUND_RUNS}
     busy = {"CKKS mult+relin (Method II)": ckks_prof,
             "CKKS mult+relin, Method I": m1_rec["profile"],
-            "BFV mult+relin, default chain": bfv_default["profile"]}
+            "BFV mult+relin, default chain": bfv_default["profile"],
+            "BGV mult+relin+mod_switch": list(bgv_rec.values())[-1]["profile"]}
     print("device busy ms / idle share: " + "; ".join(
         f"{what} {fmt_ms(prof['mult_relin_busy_ms'])} / {fmt_ms(prof['mult_relin_idle_share'])}"
         for what, prof in busy.items())
         + f"; bootstrap depth 48 {fmt_ms(boot_full['profile']['bootstrap_busy_ms'])} / "
-        f"{fmt_ms(boot_full['profile']['bootstrap_idle_share'])}; regular v2 "
+        f"{fmt_ms(boot_full['profile']['bootstrap_idle_share'])}, compressed keys "
+        f"{fmt_ms(boot_z['profile']['bootstrap_busy_ms'])} / "
+        f"{fmt_ms(boot_z['profile']['bootstrap_idle_share'])}; regular v2 "
         f"{fmt_ms(v2_full['regular']['profile']['run_busy_ms'])} / "
         f"{fmt_ms(v2_full['regular']['profile']['run_idle_share'])} [{card}]")
     print(json.dumps(record))

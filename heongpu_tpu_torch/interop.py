@@ -6,7 +6,9 @@ Keys and ciphertexts are this system's state: the reference's objects
 handed over as numpy uint32 arrays (`np.asarray` of its jax arrays), become
 the port's int32 tensors with the same bits, and `to_numpy` turns them back.
 Contexts are not carried: both packages rebuild theirs from the same
-parameters, and the tests assert that the tables agree.
+parameters, and the tests assert that the tables agree.  A seed-expanded
+key carries its `a_seed`, and a stripped one (its uniform half None) stays
+stripped: the port regenerates that half from the seed where it is used.
 """
 
 from __future__ import annotations
@@ -16,11 +18,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import bfv, ckks, ckks_boot, ckks_boot_ext, ringkit, tfhe, tfhe_int
+from .models import bfv, bgv, ckks, ckks_boot, ckks_boot_ext, ringkit, tfhe, tfhe_int
 from .ops import modmath as mm
 
 
 def _t(a, device):
+    """A residue array as an int32 tensor with the same bits; None (a key's
+    stripped half, also as np.asarray(None)) stays None."""
+    if a is None or (isinstance(a, np.ndarray) and a.dtype == object and a.ndim == 0
+                     and a.item() is None):
+        return None
     a = np.asarray(a)
     if a.dtype == np.uint32:
         return mm.u32_to_i32(a).to(device)
@@ -48,12 +55,16 @@ def secret_key_from_numpy(s_coeff, s_ntt_mont_qp, hw: int, device="cuda"):
         _t(s_ntt_mont_qp, device), int(hw))
 
 
-def public_key_from_numpy(pk0, pk1, device="cuda"):
-    return ringkit.PublicKey(_t(pk0, device), _t(pk1, device))
+def _seed(a_seed):
+    return None if a_seed is None else int(a_seed)
 
 
-def ks_key_from_numpy(k0, k1, device="cuda"):
-    return ringkit.KSKey(_t(k0, device), _t(k1, device))
+def public_key_from_numpy(pk0, pk1, a_seed=None, device="cuda"):
+    return ringkit.PublicKey(_t(pk0, device), _t(pk1, device), _seed(a_seed))
+
+
+def ks_key_from_numpy(k0, k1, a_seed=None, device="cuda"):
+    return ringkit.KSKey(_t(k0, device), _t(k1, device), _seed(a_seed))
 
 
 _GALOIS_TENSORS = ("k0", "k1", "perm_coeff_src", "perm_coeff_neg", "perm_ntt")
@@ -61,12 +72,13 @@ _GALOIS_TENSORS = ("k0", "k1", "perm_coeff_src", "perm_coeff_neg", "perm_ntt")
 
 def galois_key_from_numpy(keys: dict, device="cuda"):
     """A GaloisKey from {Galois element or "conj": {field: value}}, the
-    reference's GaloisKey carried element by element (its keys' k0, k1,
-    perm_coeff_src, perm_coeff_neg, perm_ntt, galois_elt, inv_form)."""
+    reference's GaloisKey carried element by element (its keys' k0, k1 (None
+    when stripped), perm_coeff_src, perm_coeff_neg, perm_ntt, galois_elt,
+    inv_form and, where given, a_seed)."""
     return ringkit.GaloisKey({
         elt: ringkit.GaloisKeyOne(*(_t(f[name], device) for name in _GALOIS_TENSORS),
                                   galois_elt=int(f["galois_elt"]),
-                                  inv_form=bool(f["inv_form"]))
+                                  inv_form=bool(f["inv_form"]), a_seed=_seed(f.get("a_seed")))
         for elt, f in keys.items()})
 
 
@@ -80,6 +92,10 @@ def plaintext_from_numpy(m, level: int, scale: float, device="cuda"):
 
 def bfv_ciphertext_from_numpy(c, size: int, in_ntt: bool = False, device="cuda"):
     return bfv.Ciphertext(_t(c, device), int(size), bool(in_ntt))
+
+
+def bgv_ciphertext_from_numpy(c, size: int, level: int, factor: int, device="cuda"):
+    return bgv.Ciphertext(_t(c, device), int(size), int(level), int(factor))
 
 
 def bfv_plaintext_from_numpy(m, device="cuda"):
@@ -116,14 +132,18 @@ def _boot_piece(p, device):
                      for g, babies, pts in p["giants"]))
 
 
+def _rk(k: dict, device):
+    return ks_key_from_numpy(k["k0"], k["k1"], k.get("a_seed"), device=device)
+
+
 def boot_keys_from_numpy(gk: dict, rk: dict, cfg: dict, msg_scale: float,
                          ctos_pieces, stoc_pieces, mult_i, mult_neg_i, device="cuda"):
     """The reference's BootKeys as the port's: gk as for galois_key_from_numpy;
-    rk {"k0", "k1"}; cfg the BootConfig fields; each piece a dict of its
+    rk {"k0", "k1"} and, where given, "a_seed"; cfg the BootConfig fields; each piece a dict of its
     level, n1, giants ((g, babies, uint32 diagonals), ...), pt_scale and
     depth; mult_i / mult_neg_i the (table, Shoup table) pairs."""
     return ckks_boot.BootKeys(
-        gk=galois_key_from_numpy(gk, device), rk=ks_key_from_numpy(rk["k0"], rk["k1"], device),
+        gk=galois_key_from_numpy(gk, device), rk=_rk(rk, device),
         cfg=ckks_boot.BootConfig(**cfg), msg_scale=float(msg_scale),
         ctos_pieces=[_boot_piece(p, device) for p in ctos_pieces],
         stoc_pieces=[_boot_piece(p, device) for p in stoc_pieces],
@@ -139,9 +159,9 @@ def boot_keys_v2_from_numpy(gk: dict, rk: dict, cfg: dict, msg_scale: float, var
     boot_keys_from_numpy, cfg the BootConfigV2 fields, cos_coeffs the
     power-basis cosine coefficients, and each switch key {"k0", "k1"} or
     None (no sparse-secret switching)."""
-    swk = lambda k: None if k is None else ks_key_from_numpy(k["k0"], k["k1"], device)
+    swk = lambda k: None if k is None else _rk(k, device)
     return ckks_boot_ext.BootKeysV2(
-        gk=galois_key_from_numpy(gk, device), rk=ks_key_from_numpy(rk["k0"], rk["k1"], device),
+        gk=galois_key_from_numpy(gk, device), rk=_rk(rk, device),
         cfg=ckks_boot_ext.BootConfigV2(**cfg), msg_scale=float(msg_scale), variant=str(variant),
         ctos_pieces=[_boot_piece(p, device) for p in ctos_pieces],
         stoc_pieces=[_boot_piece(p, device) for p in stoc_pieces],

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, bound with ctypes.
 
 The wrappers live beside their plain torch versions (ops/ntt.py:
-`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`, `div_round_cuda`;
+`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`, `div_round_cuda`
+(K6, counted as `div_round` or, in its t-exact mode, `div_exact_t`);
+utils/threefry.py: `uniform_rns_cuda` (K7);
 ops/keyswitch_fused.py: `keyswitch2_fused_cuda`; ops/tfhe_kernel.py:
 `blind_rotate_cuda`); this module
 builds and loads the library (kernels/build.py) and keeps the launch counts:
@@ -16,7 +18,8 @@ import torch
 from . import build
 
 launches = {"ntt_fwd": 0, "ntt_inv": 0, "mac_keys": 0, "base_conv": 0,
-            "blind_rotate": 0, "blind_rotate2": 0, "keyswitch2_fused": 0, "div_round": 0}
+            "blind_rotate": 0, "blind_rotate2": 0, "keyswitch2_fused": 0, "div_round": 0,
+            "div_exact_t": 0, "threefry_uniform": 0}
 
 _lib = None
 

@@ -8,7 +8,8 @@ sources, the shared headers (csrc/*.cuh) and the flags, so a changed source
 builds anew at first use and an unchanged one is loaded as it is.  The
 sources share csrc/ntt_common.cuh (every source) and csrc/ntt_cols.cuh, the
 register-resident column transform of the NTT K1 (ntt.cu) and the fused
-keyswitch K5 (keyswitch.cu); mac.cu holds K2 and divround.cu K6.  They have
+keyswitch K5 (keyswitch.cu); mac.cu holds K2, divround.cu K6 (both of its
+modes) and threefry.cu K7.  They have
 a plain C interface and are bound with ctypes (no PyTorch headers, so a build
 takes seconds).
 """
@@ -41,6 +42,8 @@ SIGNATURES = {
     "hf_mac_keys": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hf_base_conv": [_P] * 7 + [_I] * 5 + [_P],
     "hf_div_round": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "hf_div_exact_t": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "hf_threefry_uniform": [_P, _P, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P],
     "hf_blind_rotate": [_I, _P, _P, _P, _P, _I, _I] + [_P] * 17 + [_U, _U, _P],
     "hf_keyswitch2_fused": [_P] * 7 + [_I] * 6 + [_P] * 15 + [_P],
 }

@@ -25,6 +25,18 @@
 //
 // Bound: device-memory bandwidth at p <= 4 (8 bytes a Q word moved against about
 // 5p integer operations), near balance at p = 6.
+//
+// The t-exact mode (EXACT = true, hf_div_exact_t) is BGV's division, which
+// replaces heongpu_tpu/models/bgv.py::DivExactT (bgv.py:48-106), also XLA-fused on
+// the TPU: stage s takes v_s = [-x_{P_s'} t^-1]_{P_s'}, centered, and sets
+// x_j <- (x_j + t v_s) * P_s'^-1 mod q_j, an exact division that keeps the phase
+// congruent to the message mod t.  The column's v_s is computed once, as its
+// magnitude with the sign in bit 31 (|v_s| < 2^29); a limb's update is a Shoup
+// product of |v_s| by [t]_{q_j}, negated for a negative v_s, an addition and the
+// Shoup product by P_s'^-1 mod q_j.  Its table puts [-t^-1]_{P_s'} and its Shoup
+// companion per stage after P_s and floor(P_s/2), and ([t]_{q_j}, its companion,
+// P_s'^-1 mod q_j, its companion) per limb and stage.  Same loads, stores and
+// structure as the rounding mode, about twice its integer operations per update.
 
 #include "ntt_common.cuh"
 
@@ -44,7 +56,25 @@ __device__ __forceinline__ u32 div_step(u32 v, u32 r, uint4 c, u32 q) {
   return csub(shoup_lazy(v + c.x - r, c.y, c.z, q), q);
 }
 
-template <int P>
+// (v + t*w) * P^-1 mod q, canonical, for the centered w whose magnitude is r's low 31
+// bits and whose sign is r's bit 31; c = ([t]_q, its Shoup companion, P^-1 mod q, its
+// Shoup companion).
+__device__ __forceinline__ u32 exact_step(u32 v, u32 r, uint4 c, u32 q) {
+  u32 tw = csub(shoup_lazy(r & 0x7fffffffu, c.x, c.y, q), q);
+  if (r >> 31) tw = tw ? q - tw : 0u;
+  return csub(shoup_lazy(csub(v + tw, q), c.z, c.w, q), q);
+}
+
+template <bool EXACT>
+__device__ __forceinline__ u32 stage_step(u32 v, u32 r, uint4 c, u32 q) {
+  return EXACT ? exact_step(v, r, c, q) : div_step(v, r, c, q);
+}
+
+// Head words per stage: P_s and floor(P_s/2), and in the t-exact mode [-t^-1]_{P_s}
+// and its Shoup companion.
+__host__ __device__ constexpr int head_words(bool exact) { return exact ? 4 : 2; }
+
+template <int P, bool EXACT>
 __global__ void __launch_bounds__(kThreads) div_round_kernel(const DivParams A) {
   extern __shared__ __align__(16) u32 sm[];
   for (int i = threadIdx.x; i < A.words; i += kThreads) sm[i] = A.tab[i];
@@ -52,21 +82,27 @@ __global__ void __launch_bounds__(kThreads) div_round_kernel(const DivParams A) 
 
   const int n = blockIdx.x * kThreads + threadIdx.x;
   if (n >= A.N) return;
-  const u32* q = sm + 2 * P;                   // the primes q_j, j < k + P - 1
-  const uint4* st = reinterpret_cast<const uint4*>(sm + ((3 * P + A.k - 1 + 3) & ~3));
+  constexpr int H = head_words(EXACT) * P;
+  const u32* q = sm + H;                       // the primes q_j, j < k + P - 1
+  const uint4* st = reinterpret_cast<const uint4*>(sm + ((H + A.k + P - 1 + 3) & ~3));
   const size_t N = A.N;
   const u32* xc = A.x + static_cast<size_t>(blockIdx.y) * (A.k + P) * N + n;
 
   u32 y[P];  // the special residues, limb k + t
 #pragma unroll
   for (int t = 0; t < P; ++t) y[t] = xc[(A.k + t) * N];
-  u32 r[P];  // the rounding term of each stage
+  u32 r[P];  // the rounding term of each stage, or its centered v (t-exact)
 #pragma unroll
   for (int s = 0; s < P; ++s) {
-    r[s] = csub(y[P - 1 - s] + sm[P + s], sm[s]);
+    if (EXACT) {
+      const u32 v = csub(shoup_lazy(y[P - 1 - s], sm[2 * P + s], sm[3 * P + s], sm[s]), sm[s]);
+      r[s] = v > sm[P + s] ? (sm[s] - v) | 0x80000000u : v;
+    } else {
+      r[s] = csub(y[P - 1 - s] + sm[P + s], sm[s]);
+    }
 #pragma unroll
     for (int t = 0; t < P - 1 - s; ++t)
-      y[t] = div_step(y[t], r[s], st[(A.k + t) * P + s], q[A.k + t]);
+      y[t] = stage_step<EXACT>(y[t], r[s], st[(A.k + t) * P + s], q[A.k + t]);
   }
 
   u32* oc = A.out + static_cast<size_t>(blockIdx.y) * A.k * N + n;
@@ -75,23 +111,53 @@ __global__ void __launch_bounds__(kThreads) div_round_kernel(const DivParams A) 
     const u32 qj = q[j];
     u32 v = xc[j * N];
 #pragma unroll
-    for (int s = 0; s < P; ++s) v = div_step(v, r[s], st[j * P + s], qj);
+    for (int s = 0; s < P; ++s) v = stage_step<EXACT>(v, r[s], st[j * P + s], qj);
     oc[j * N] = v;
   }
 }
 
-template <int P>
+template <int P, bool EXACT>
 int launch_div_round(const DivParams& A, int B, cudaStream_t stream) {
   const dim3 grid{static_cast<unsigned>((A.N + kThreads - 1) / kThreads),
                   static_cast<unsigned>(B), 1u};
   const int smem = A.words * static_cast<int>(sizeof(u32));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        div_round_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        div_round_kernel<P, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  div_round_kernel<P><<<grid, kThreads, smem, stream>>>(A);
+  div_round_kernel<P, EXACT><<<grid, kThreads, smem, stream>>>(A);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool EXACT>
+int div_chain(const void* x, void* out, const void* tab, int B, int k, int p, int N,
+              void* stream) {
+  const int w = k + p - 1;
+  const DivParams A{static_cast<const u32*>(x), static_cast<u32*>(out),
+                    static_cast<const u32*>(tab), k, N,
+                    ((head_words(EXACT) * p + w + 3) & ~3) + 4 * w * p};
+  if (A.words * sizeof(u32) > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p) {
+    case 1: return launch_div_round<1, EXACT>(A, B, s);
+    case 2: return launch_div_round<2, EXACT>(A, B, s);
+    case 3: return launch_div_round<3, EXACT>(A, B, s);
+    case 4: return launch_div_round<4, EXACT>(A, B, s);
+    case 5: return launch_div_round<5, EXACT>(A, B, s);
+    case 6: return launch_div_round<6, EXACT>(A, B, s);
+    case 7: return launch_div_round<7, EXACT>(A, B, s);
+    case 8: return launch_div_round<8, EXACT>(A, B, s);
+    case 9: return launch_div_round<9, EXACT>(A, B, s);
+    case 10: return launch_div_round<10, EXACT>(A, B, s);
+    case 11: return launch_div_round<11, EXACT>(A, B, s);
+    case 12: return launch_div_round<12, EXACT>(A, B, s);
+    case 13: return launch_div_round<13, EXACT>(A, B, s);
+    case 14: return launch_div_round<14, EXACT>(A, B, s);
+    case 15: return launch_div_round<15, EXACT>(A, B, s);
+    case 16: return launch_div_round<16, EXACT>(A, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -102,28 +168,11 @@ int launch_div_round(const DivParams& A, int B, cudaStream_t stream) {
 // may hold.
 extern "C" int hf_div_round(const void* x, void* out, const void* tab, int B, int k, int p,
                             int N, void* stream) {
-  const int w = k + p - 1;
-  const DivParams A{static_cast<const u32*>(x), static_cast<u32*>(out),
-                    static_cast<const u32*>(tab), k, N, ((2 * p + w + 3) & ~3) + 4 * w * p};
-  if (A.words * sizeof(u32) > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 1: return launch_div_round<1>(A, B, s);
-    case 2: return launch_div_round<2>(A, B, s);
-    case 3: return launch_div_round<3>(A, B, s);
-    case 4: return launch_div_round<4>(A, B, s);
-    case 5: return launch_div_round<5>(A, B, s);
-    case 6: return launch_div_round<6>(A, B, s);
-    case 7: return launch_div_round<7>(A, B, s);
-    case 8: return launch_div_round<8>(A, B, s);
-    case 9: return launch_div_round<9>(A, B, s);
-    case 10: return launch_div_round<10>(A, B, s);
-    case 11: return launch_div_round<11>(A, B, s);
-    case 12: return launch_div_round<12>(A, B, s);
-    case 13: return launch_div_round<13>(A, B, s);
-    case 14: return launch_div_round<14>(A, B, s);
-    case 15: return launch_div_round<15>(A, B, s);
-    case 16: return launch_div_round<16>(A, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return div_chain<false>(x, out, tab, B, k, p, N, stream);
+}
+
+// The same chain in the t-exact mode: tab is the DivRoundChain.tab of DivExactT stages.
+extern "C" int hf_div_exact_t(const void* x, void* out, const void* tab, int B, int k, int p,
+                              int N, void* stream) {
+  return div_chain<true>(x, out, tab, B, k, p, N, stream);
 }

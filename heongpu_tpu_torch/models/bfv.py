@@ -20,8 +20,9 @@ K2 `base_conv`, a Method-I keyswitch runs K1 and K2 `mac_keys`, and a
 Method-II keyswitch of one poly runs K5; the rest is plain torch.
 
 Plaintexts are (n,) int32 tensors mod t.  Ciphertexts are in the
-coefficient domain unless `in_ntt`.  Seed-expanded keys (`a_seed`, a
-stripped k1) raise errors.ParameterError, as in ringkit.
+coefficient domain unless `in_ntt`.  Seed-expanded keys (`a_seed`) are
+made and used as in ringkit: a stripped key regenerates its k1 (K7 on the
+card) just before the keyswitch that uses it.
 """
 
 from __future__ import annotations
@@ -293,13 +294,6 @@ def _ring(ctx: BfvContext) -> RingView:
                     ctx.ntt_qp, ctx.div_p)
 
 
-def _no_seed(a_seed):
-    if a_seed is not None:
-        raise errors.ParameterError(
-            "seed-expanded keys (a_seed) regenerate their uniform half with JAX "
-            "Threefry, which the port does not have")
-
-
 def _groups(ctx: BfvContext):
     if ctx.ks_type == "II":
         return tuple(tuple(range(j, min(j + ctx.alpha, ctx.k)))
@@ -312,13 +306,11 @@ def keygen_secret(ctx: BfvContext, key, hamming_weight=None) -> SecretKey:
 
 
 def keygen_public(ctx: BfvContext, key, sk: SecretKey, a_seed=None) -> PublicKey:
-    _no_seed(a_seed)
-    return ringkit.keygen_public(_ring(ctx), key, sk)
+    return ringkit.keygen_public(_ring(ctx), key, sk, a_seed=a_seed)
 
 
 def keygen_relin(ctx: BfvContext, key, sk: SecretKey, a_seed=None) -> KSKey:
-    _no_seed(a_seed)
-    return ringkit.keygen_relin(_ring(ctx), key, sk, groups=_groups(ctx))
+    return ringkit.keygen_relin(_ring(ctx), key, sk, groups=_groups(ctx), a_seed=a_seed)
 
 
 def keygen_galois(ctx: BfvContext, key, sk: SecretKey, steps=None, max_shift: int = 8,
@@ -524,8 +516,9 @@ def multiply(ctx: BfvContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
 
 def _ks_dispatch(ctx: BfvContext, poly_q, kk):
     """Keyswitch one coefficient-domain poly over Q with key kk (a KSKey or
-    GaloisKeyOne): Method I's keyswitch_core or Method II's keyswitch2."""
-    k1 = ringkit.ensure_k1(kk)
+    GaloisKeyOne): Method I's keyswitch_core or Method II's keyswitch2.  A
+    stripped seeded key regenerates its k1 first (ringkit.ensure_k1)."""
+    k1 = ringkit.ensure_k1(_ring(ctx), kk)
     if ctx.ks_type == "II":
         return keyswitch2.keyswitch2(poly_q, kk.k0, k1, ctx.ks2[0], ctx.ntt_qp, ctx.base_qp,
                                      in_ntt=False, out_ntt=False, ntt_q_level=ctx.ntt_q)
@@ -624,7 +617,7 @@ def rotate_rows_hoisted(ctx: BfvContext, ct: Ciphertext, d_ntt,
     digits and permute only the finished pair.  The MAC is one K2 mac_keys
     launch on the card under either method."""
     p = ctx.base_q.col()
-    k1 = ringkit.ensure_k1(gk1)
+    k1 = ringkit.ensure_k1(_ring(ctx), gk1)
     dp = d_ntt if gk1.inv_form else polyops.apply_galois_ntt(d_ntt, gk1.perm_ntt)
     acc = ringkit.hoisted_mac(dp, gk1.k0, k1, ctx.base_qp)
     div = ctx.ks2[0].div_stages if ctx.ks_type == "II" else ctx.div_p

@@ -260,23 +260,23 @@ def keygen_secret(ctx, key, hamming_weight=None) -> SecretKey:
     return ringkit.keygen_secret(_ring(ctx), key, hamming_weight)
 
 
-def keygen_public(ctx, key, sk) -> PublicKey:
-    return ringkit.keygen_public(_ring(ctx), key, sk)
+def keygen_public(ctx, key, sk, a_seed=None) -> PublicKey:
+    return ringkit.keygen_public(_ring(ctx), key, sk, a_seed=a_seed)
 
 
-def keygen_relin(ctx, key, sk, level: int = 0) -> KSKey:
+def keygen_relin(ctx, key, sk, a_seed=None, level: int = 0) -> KSKey:
     """level > 0: generate at the level basis (usable at levels >= level
     only; the key's limb extent encodes its generation level)."""
     return ringkit.keygen_relin(_ring_at(ctx, level), key, _sk_at(ctx, sk, level),
-                                groups=_groups(ctx, level))
+                                groups=_groups(ctx, level), a_seed=a_seed)
 
 
 def keygen_galois(ctx, key, sk, steps=None, max_shift: int = 8, elts=None,
                   a_seed=None, store_a: bool = True, include_conj: bool = True,
                   level: int = 0, inv_form: bool = False) -> GaloisKey:
     """Galois keys (ringkit.keygen_galois) at the level basis; a key made at
-    `level` serves levels >= level.  a_seed / store_a=False raise
-    errors.ParameterError (seeded keys are not ported)."""
+    `level` serves levels >= level.  a_seed seed-expands them, and
+    store_a=False stores them stripped (ringkit.keygen_galois)."""
     return ringkit.keygen_galois(_ring_at(ctx, level), key, _sk_at(ctx, sk, level),
                                  steps, max_shift, include_conj=include_conj,
                                  groups=_groups(ctx, level), elts=elts, a_seed=a_seed,
@@ -654,22 +654,30 @@ def _check_key_level(ctx, ka: int, k_gen: int):
             f"{ctx.k - k_gen}")
 
 
-def _key_slices(ctx, k0, k1, level: int):
-    """Both key halves sliced to the level basis: ceil(ka/alpha) digits (ka
-    under Method I), the active Q limbs and the specials.  The key's own Q
-    extent is read from its shape, so a key made at a deeper level slices
-    the same way."""
+def _key_ring(ctx, kk) -> RingView:
+    """Ring view of the basis a key was generated in (read from its shape)."""
+    return _ring_at(ctx, ctx.k - (kk.k0.shape[1] - len(ctx.p_primes)))
+
+
+def _key_slices(ctx, kk, level: int):
+    """Both halves of a KSKey or GaloisKeyOne sliced to the level basis:
+    ceil(ka/alpha) digits (ka under Method I), the active Q limbs and the
+    specials.  The key's own Q extent is read from its shape, so a key made
+    at a deeper level slices the same way.  A stripped key's k1 is
+    regenerated first (ringkit.ensure_k1: one K7 launch on the card)."""
     ka = ctx.active(level)
-    k_gen = k0.shape[1] - len(ctx.p_primes)
+    k_gen = kk.k0.shape[1] - len(ctx.p_primes)
     _check_key_level(ctx, ka, k_gen)
     d_lvl = -(-ka // ctx.alpha)
-    return (ringkit.slice_key_level(k0, ka, k_gen, d_lvl),
+    k1 = ringkit.ensure_k1(lambda: _key_ring(ctx, kk), kk)
+    return (ringkit.slice_key_level(kk.k0, ka, k_gen, d_lvl),
             ringkit.slice_key_level(k1, ka, k_gen, d_lvl))
 
 
-def _keyswitch_poly(ctx, poly_ntt, k0, k1, level):
-    """Keyswitch one NTT-domain poly at `level`; returns (d0, d1) NTT-domain."""
-    k0s, k1s = _key_slices(ctx, k0, k1, level)
+def _keyswitch_poly(ctx, poly_ntt, kk, level):
+    """Keyswitch one NTT-domain poly at `level` with the key kk; returns
+    (d0, d1) NTT-domain."""
+    k0s, k1s = _key_slices(ctx, kk, level)
     if ctx.ks_type == "II":
         return keyswitch2.keyswitch2(
             poly_ntt, k0s, k1s, ctx.ks2[level], ctx.ntt_qp_at(level), ctx.base_qp_at(level),
@@ -681,7 +689,7 @@ def _keyswitch_poly(ctx, poly_ntt, k0, k1, level):
 
 def relinearize(ctx, a: Ciphertext, rk: KSKey) -> Ciphertext:
     errors.check_size(a.size, 3, "relinearize")
-    d0, d1 = _keyswitch_poly(ctx, a.c[2], rk.k0, rk.k1, a.level)
+    d0, d1 = _keyswitch_poly(ctx, a.c[2], rk, a.level)
     p = _p_at(ctx, a.level)
     return Ciphertext(mm.add_mod(a.c[:2], torch.stack([d0, d1]), p),
                       2, a.level, a.scale)
@@ -696,12 +704,12 @@ def apply_galois(ctx, a: Ciphertext, gk1: GaloisKeyOne) -> Ciphertext:
     p = _p_at(ctx, a.level)
     if gk1.inv_form:
         # sigma applied once to the combined pair: sigma(c0 + KS'(c1)) = sigma(c0) + KS(sigma(c1))
-        d0, d1 = _keyswitch_poly(ctx, a.c[1], gk1.k0, gk1.k1, a.level)
+        d0, d1 = _keyswitch_poly(ctx, a.c[1], gk1, a.level)
         out = torch.stack([mm.add_mod(a.c[0], d0, p), d1])
         return Ciphertext(polyops.apply_galois_ntt(out, gk1.perm_ntt), 2, a.level, a.scale)
     g0 = polyops.apply_galois_ntt(a.c[0], gk1.perm_ntt)
     g1 = polyops.apply_galois_ntt(a.c[1], gk1.perm_ntt)
-    d0, d1 = _keyswitch_poly(ctx, g1, gk1.k0, gk1.k1, a.level)
+    d0, d1 = _keyswitch_poly(ctx, g1, gk1, a.level)
     return Ciphertext(torch.stack([mm.add_mod(g0, d0, p), d1]), 2, a.level, a.scale)
 
 
@@ -716,7 +724,7 @@ def conjugate(ctx, a: Ciphertext, gk: GaloisKey) -> Ciphertext:
 
 def switch_key(ctx, a: Ciphertext, swk: KSKey) -> Ciphertext:
     errors.check_size(a.size, 2, "switch_key")
-    d0, d1 = _keyswitch_poly(ctx, a.c[1], swk.k0, swk.k1, a.level)
+    d0, d1 = _keyswitch_poly(ctx, a.c[1], swk, a.level)
     p = _p_at(ctx, a.level)
     return Ciphertext(torch.stack([mm.add_mod(a.c[0], d0, p), d1]), 2, a.level, a.scale)
 
@@ -763,7 +771,7 @@ def rotate_hoisted_qtilde(ctx, d_ntt, gk1: GaloisKeyOne, pc0, level: int):
     unpermuted digits and permute only the pair."""
     base_qp = ctx.base_qp_at(level)
     p = base_qp.col()
-    k0s, k1s = _key_slices(ctx, gk1.k0, gk1.k1, level)
+    k0s, k1s = _key_slices(ctx, gk1, level)
     if gk1.inv_form:
         acc = rns.mac_keys(d_ntt, k0s, k1s, base_qp)
         t0 = mm.add_mod(acc[0], pc0, p)

@@ -24,13 +24,18 @@ scaled-exponential Taylor series with repeated squaring.
 Every step after the diagonals is exact integer arithmetic and returns the
 reference's residues; the diagonals themselves come from the float64
 encoder, which is exact where the reference's df64 one is off by up to 3 in
-a centered coefficient (tests/encoder_gap.py).  Seed-compressed key sets and the limb alignment of
-keys for a sharded mesh are not ported.
+a centered coefficient (tests/encoder_gap.py).  compress_keys=True stores
+the Galois and relin keys seed-expanded and stripped (leveled_boot_keys):
+each use regenerates the key's uniform half (K7 on the card).  Its seeds
+are the port's own, kept apart where the reference's collide, so such a
+set and the residues of a bootstrap with it differ from the reference's.
+The limb alignment of keys for a sharded mesh is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Dict, List, Sequence, Tuple
 
@@ -235,11 +240,7 @@ def _build_piece(ctx: CkksContext, diags: Dict[int, np.ndarray], level: int,
     return Piece(level=level, n1=n1, giants=tuple(giants), pt_scale=scale, depth=depth)
 
 
-def _check_ported(compress_keys: bool, limb_align: int):
-    if compress_keys:
-        raise errors.ParameterError(
-            "compress_keys=True needs seed-expanded keys, which are not ported yet "
-            "(ROADMAP.md, queue 1: seeded keys)")
+def _check_ported(limb_align: int):
     if limb_align != 1:
         raise errors.ParameterError(
             "limb_align != 1 aligns keys for sharding on a device mesh, which is not "
@@ -256,8 +257,20 @@ def leveled_boot_keys(ctx, key, sk, pieces, aux_lvl: int, compress_keys: bool = 
     chain); include_giants=False leaves the giant steps to compose from it.
     The draw order is the reference's: level groups in order, then conj,
     then relin.  limb_align != 1 (keys cut to shard evenly on a limb mesh)
-    raises errors.ParameterError."""
-    _check_ported(compress_keys, limb_align)
+    raises errors.ParameterError.
+
+    compress_keys=True makes every key seed-expanded and stores it stripped
+    (k0 only).  Its seeds, from seed0 = _compress_seed(key) < 2^31: conj
+    seed0, relin seed0 + 1, the j-th key of level group i seed0 + (i+1)·2^16
+    + j.  They stay below 2^32 and apart, so every key draws its own uniform
+    half (a Threefry key keeps a seed mod 2^32 only).  The reference's
+    layout (group i at seed0 + i·2^34, conj seed0 + 2^43, relin seed0 +
+    2^44) collides mod 2^32: the j-th key of every group, conj and relin
+    share one uniform half, and from the difference of two such keys' k0
+    anyone holding the set can recover the secret key.  So the port's compressed set is not the reference's
+    bit for bit (ROADMAP.md, queue 3); its error halves are, key for key.
+    """
+    _check_ported(limb_align)
     step_lvl = dict(extra_steps_lvl or {})
     for pc in pieces:
         for g, babies, _ in pc.giants:
@@ -267,17 +280,42 @@ def leveled_boot_keys(ctx, key, sk, pieces, aux_lvl: int, compress_keys: bool = 
     by_level = {}
     for s, lv in step_lvl.items():
         by_level.setdefault(lv, []).append(s)
+    seed0 = _compress_seed(key) if compress_keys else None
+    at = lambda off: None if seed0 is None else seed0 + off
+    if len(by_level) >= (1 << 15) - 1 or max(map(len, by_level.values()), default=0) >= 1 << 16:
+        raise errors.ParameterError("the compressed seed layout holds fewer than 2^15 - 1 "
+                                    "level groups of fewer than 2^16 keys each")
     gk_all = {}
     for i, lv in enumerate(sorted(by_level)):
         gk_l = ckks.keygen_galois(ctx, rng.fold_in(key, 100 + i), sk,
                                   steps=sorted(by_level[lv]), level=lv,
-                                  include_conj=False, inv_form=inv_form)
+                                  include_conj=False, a_seed=at((i + 1) << 16),
+                                  store_a=not compress_keys, inv_form=inv_form)
         gk_all.update(gk_l.keys)
     gk_c = ckks.keygen_galois(ctx, rng.fold_in(key, 99), sk, steps=[], level=aux_lvl,
-                              include_conj=True, inv_form=inv_form)
+                              include_conj=True, a_seed=at(0),
+                              store_a=not compress_keys, inv_form=inv_form)
     gk_all[polyops.GALOIS_CONJ] = gk_c.keys[polyops.GALOIS_CONJ]
-    rk = ckks.keygen_relin(ctx, rng.fold_in(key, 1), sk, level=aux_lvl)
+    rk = ckks.keygen_relin(ctx, rng.fold_in(key, 1), sk, a_seed=at(1), level=aux_lvl)
+    if compress_keys:
+        rk = ringkit.strip_seeded(rk)
     return ringkit.GaloisKey(gk_all), rk
+
+
+def _compress_seed(key) -> int:
+    """The public seed of a compressed key set, from the keygen source: a
+    DRBG draws it from its own stream (bits64 >> 33, as the reference does,
+    so the rest of the set draws the reference's errors); a torch.Generator
+    gives the low 31 bits of a SHA-256 of its state (its state does not
+    move).  The reference derives it from a JAX key's words, which the port
+    does not take here."""
+    if rng.is_drbg(key):
+        return int(key.bits64(1)[0] >> 33)
+    if rng.is_threefry(key):
+        raise errors.ParameterError("a compressed key set is drawn from a DRBG or a "
+                                    "torch.Generator, not a Threefry key")
+    state = key.get_state().cpu().numpy().tobytes()
+    return int.from_bytes(hashlib.sha256(state).digest()[:4], "little") & (2 ** 31 - 1)
 
 
 def generate_bootstrap_keys(ctx: CkksContext, key, sk: ringkit.SecretKey,
@@ -285,11 +323,11 @@ def generate_bootstrap_keys(ctx: CkksContext, key, sk: ringkit.SecretKey,
                             compress_keys: bool = False, limb_align: int = 1,
                             inv_form: bool = False) -> BootKeys:
     """Rotation / conj / relin keys and the factored-DFT plaintext tables with
-    the EvalMod constants folded in.  compress_keys=True and limb_align != 1
-    raise errors.ParameterError (seed-expanded keys and keys aligned for a
-    limb mesh are not ported)."""
+    the EvalMod constants folded in.  compress_keys=True stores the Galois and
+    relin keys stripped (leveled_boot_keys); limb_align != 1 raises
+    errors.ParameterError (keys aligned for a limb mesh are not ported)."""
     cfg = cfg or BootConfig()
-    _check_ported(compress_keys, limb_align)
+    _check_ported(limb_align)
     if msg_scale is None:
         # a composite base needs a composite scale (see BootConfig.base_count)
         msg_scale = float(ctx.default_scale) ** cfg.base_count
@@ -325,7 +363,8 @@ def generate_bootstrap_keys(ctx: CkksContext, key, sk: ringkit.SecretKey,
                    for i, m in enumerate(stoc_mats)]
     # conj is first used at ctos_finish (level p1*pd); relin at EvalMod
     gk, rk = leveled_boot_keys(ctx, key, sk, ctos_pieces + stoc_pieces, aux_lvl=p1 * pd,
-                               limb_align=limb_align, inv_form=inv_form)
+                               compress_keys=compress_keys, limb_align=limb_align,
+                               inv_form=inv_form)
     return BootKeys(gk=gk, rk=rk, cfg=cfg, msg_scale=msg_scale,
                     ctos_pieces=ctos_pieces, stoc_pieces=stoc_pieces,
                     mult_i=ckks.monomial_mult_tables(ctx, n // 2),

@@ -1,6 +1,6 @@
-"""Shared RNS-ring key machinery for BFV and CKKS (port of the full-key
-subset of heongpu_tpu/models/ringkit.py: secret, public, relinearization,
-switching and Galois keys, and the Method-I keyswitch).
+"""Shared RNS-ring key machinery for BFV, CKKS and BGV (port of
+heongpu_tpu/models/ringkit.py: secret, public, relinearization, switching
+and Galois keys, seed-expanded keys, and the Method-I keyswitch).
 
 Key layout as in the reference: the secret key as ternary coefficients plus
 its NTT-domain Montgomery form over Q·P; public and keyswitch keys in the NTT
@@ -9,9 +9,14 @@ prime and carries P·target on that prime's limb only; the Method-II grouped
 gadget puts P·target on every limb of digit j's group.  Either way one key
 serves every level by prefix slicing.  Draw order follows the reference
 (uniform half first, then the gaussian), so DRBG-seeded keys are
-bit-identical to the JAX package's.  Seed-expanded keys (`a_seed`,
-`store_a=False`, a stripped k1) regenerate their uniform half with JAX
-Threefry and are not ported.
+bit-identical to the JAX package's.
+
+Seed-expanded keys (`a_seed`): the uniform half is drawn from the public
+Threefry key `rng.new_key(a_seed)` (utils/threefry.py, the reference's
+jax.random bits), so it can be dropped (`strip_seeded`, `store_a=False`)
+and regenerated (`expand_seeded`, or `ensure_k1` just before a keyswitch
+uses the key): one K7 launch on the card.  `noise_scale` multiplies the
+gaussian error (BGV's t-scaled noise).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 from ..ops import modmath as mm
 from ..ops import ntt as nttm
 from ..ops import polyops, rns
-from ..utils import errors, rng
+from ..utils import errors, rng, threefry
 
 _prod = lambda xs: reduce(lambda a, b: a * b, xs, 1)
 
@@ -39,15 +44,20 @@ class SecretKey:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PublicKey:
+    """pk1 (the uniform half) is regenerable from `a_seed` when the key was
+    made seed-expanded: strip_seeded drops it, expand_seeded rebuilds it."""
     pk0: torch.Tensor  # (k+p, n) NTT, Montgomery form
-    pk1: torch.Tensor
+    pk1: Optional[torch.Tensor]
+    a_seed: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class KSKey:
-    """Keyswitch key: (d, k+p, n) NTT + Montgomery per half."""
+    """Keyswitch key: (d, k+p, n) NTT + Montgomery per half; k1 (uniform) is
+    seed-expandable like PublicKey.pk1."""
     k0: torch.Tensor
-    k1: torch.Tensor
+    k1: Optional[torch.Tensor]
+    a_seed: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -55,14 +65,15 @@ class GaloisKeyOne:
     """The keyswitch key of one Galois element g, with its gather tables.
     inv_form=True stores the key inverse-permuted (k' = sigma_g^-1(k)), so
     hoisted rotations MAC the unpermuted digits and permute only the 2-poly
-    result."""
+    result.  k1 is seed-expandable like PublicKey.pk1."""
     k0: torch.Tensor
-    k1: torch.Tensor
+    k1: Optional[torch.Tensor]
     perm_coeff_src: torch.Tensor
     perm_coeff_neg: torch.Tensor
     perm_ntt: torch.Tensor
     galois_elt: int
     inv_form: bool = False
+    a_seed: Optional[int] = None
 
 
 class GaloisKey:
@@ -105,32 +116,58 @@ def keygen_secret(ring: RingView, key, hamming_weight: Optional[int] = None) -> 
     return SecretKey(s, mm.to_mont(s_ntt, b.col(), b.col("r1")), hw)
 
 
-def keygen_public(ring: RingView, key, sk: SecretKey) -> PublicKey:
+def _seeded_a(ring: RingView, a_seed: int, d: Optional[int], mont: bool):
+    """The uniform NTT-domain half of a seed-expanded key, from its public
+    seed: (k+p, n), or (d, k+p, n) from a (d, n) draw with the limb axis
+    moved behind the digit axis; in Montgomery form when `mont`.  One K7
+    launch on the card."""
+    shape = (ring.n,) if d is None else (d, ring.n)
+    return threefry.uniform_rns(threefry.key_from_seed(a_seed), ring.qp_primes, shape,
+                                ring.device, moved=d is not None, mont=mont)
+
+
+def _draw_a(ring: RingView, key, a_seed: Optional[int], d: Optional[int]):
+    """(the uniform half of a new key, NTT domain, not yet in Montgomery
+    form; the key to draw its error from).  With a_seed the half comes from
+    that public seed and the error from `key`; without, both are split from
+    `key`."""
+    if a_seed is not None:
+        return _seeded_a(ring, a_seed, d, mont=False), key
     ka, ke = rng.split(key)
-    a = rng.uniform_rns(ka, ring.qp_primes, (ring.n,), ring.device)  # NTT domain
-    e = nttm.ntt_fwd(rng.gaussian_rns(ke, ring.qp_primes, (ring.n,), ring.device),
-                     ring.ntt_qp)
+    a = rng.uniform_rns(ka, ring.qp_primes, (ring.n,) if d is None else (d, ring.n),
+                        ring.device)
+    return (a if d is None else a.transpose(0, 1).contiguous()), ke
+
+
+def keygen_public(ring: RingView, key, sk: SecretKey, a_seed: Optional[int] = None,
+                  noise_scale: int = 1) -> PublicKey:
+    """a_seed: draw the uniform half from this public seed so the key is
+    seed-expandable; noise_scale=t gives BGV's t-scaled noise."""
+    a, ke = _draw_a(ring, key, a_seed, None)  # NTT domain
+    e = nttm.ntt_fwd(rng.gaussian_rns(ke, ring.qp_primes, (ring.n,), ring.device,
+                                      noise_scale=noise_scale), ring.ntt_qp)
     b = ring.base_qp
     p, r1 = b.col(), b.col("r1")
     a_s = mm.mont_mul(a, sk.s_ntt_mont_qp, p, b.col("rinv"))
     pk0 = mm.neg_mod(mm.add_mod(a_s, e, p), p)
-    return PublicKey(mm.to_mont(pk0, p, r1), mm.to_mont(a, p, r1))
+    return PublicKey(mm.to_mont(pk0, p, r1), mm.to_mont(a, p, r1),
+                     None if a_seed is None else int(a_seed))
 
 
-def ks_keygen(ring: RingView, key, sk: SecretKey, target_ntt_mont,
-              groups=None) -> KSKey:
+def ks_keygen(ring: RingView, key, sk: SecretKey, target_ntt_mont, groups=None,
+              a_seed: Optional[int] = None, noise_scale: int = 1) -> KSKey:
     """Keyswitch key encrypting `target` (NTT + Montgomery over QP) under s.
     groups=None: one digit per Q prime (Method I); groups=((0,1),(2,3),...):
-    Method-II grouped gadget."""
+    Method-II grouped gadget.  a_seed: seed-expand the uniform half (see
+    PublicKey)."""
     if groups is None:
         groups = tuple((i,) for i in range(ring.k))
     d, n = len(groups), ring.n
-    ka, ke = rng.split(key)
+    a, ke = _draw_a(ring, key, a_seed, d)
     b = ring.base_qp
     p, r1, rinv = b.col(), b.col("r1"), b.col("rinv")
-    a = rng.uniform_rns(ka, ring.qp_primes, (d, n), ring.device)
-    a = a.transpose(0, 1).contiguous()
-    e = nttm.ntt_fwd(rng.gaussian_rns(ke, ring.qp_primes, (d, n), ring.device)
+    e = nttm.ntt_fwd(rng.gaussian_rns(ke, ring.qp_primes, (d, n), ring.device,
+                                      noise_scale=noise_scale)
                      .transpose(0, 1).contiguous(), ring.ntt_qp)
     a_s = mm.mont_mul(a, sk.s_ntt_mont_qp[None], p, rinv)
     k0 = mm.neg_mod(mm.add_mod(a_s, e, p), p)
@@ -141,19 +178,23 @@ def ks_keygen(ring: RingView, key, sk: SecretKey, target_ntt_mont,
             sel[j, i] = P % ring.q_primes[i]
     pt = mm.mont_mul(target_ntt_mont[None], sel.to(ring.device)[:, :, None], p, rinv)
     k0 = mm.add_mod(k0, pt, p)
-    return KSKey(mm.to_mont(k0, p, r1), mm.to_mont(a, p, r1))
+    return KSKey(mm.to_mont(k0, p, r1), mm.to_mont(a, p, r1),
+                 None if a_seed is None else int(a_seed))
 
 
-def keygen_relin(ring: RingView, key, sk: SecretKey, groups=None) -> KSKey:
+def keygen_relin(ring: RingView, key, sk: SecretKey, groups=None,
+                 a_seed: Optional[int] = None, noise_scale: int = 1) -> KSKey:
     b = ring.base_qp
     s2_mont = mm.mont_mul(sk.s_ntt_mont_qp, sk.s_ntt_mont_qp, b.col(), b.col("rinv"))
-    return ks_keygen(ring, key, sk, s2_mont, groups=groups)
+    return ks_keygen(ring, key, sk, s2_mont, groups=groups, a_seed=a_seed,
+                     noise_scale=noise_scale)
 
 
 def keygen_switch(ring: RingView, key, sk_old: SecretKey, sk_new: SecretKey,
-                  groups=None) -> KSKey:
+                  groups=None, a_seed: Optional[int] = None, noise_scale: int = 1) -> KSKey:
     """Key switching from sk_old to sk_new."""
-    return ks_keygen(ring, key, sk_new, sk_old.s_ntt_mont_qp, groups=groups)
+    return ks_keygen(ring, key, sk_new, sk_old.s_ntt_mont_qp, groups=groups, a_seed=a_seed,
+                     noise_scale=noise_scale)
 
 
 def _galois_target(ring: RingView, sk: SecretKey, src, neg):
@@ -165,6 +206,7 @@ def _galois_target(ring: RingView, sk: SecretKey, src, neg):
 
 
 def keygen_galois_one(ring: RingView, key, sk: SecretKey, g: int, groups=None,
+                      a_seed: Optional[int] = None, noise_scale: int = 1,
                       inv_form: bool = False) -> GaloisKeyOne:
     n, dev = ring.n, ring.device
     src, neg = polyops.galois_perm_coeff(g, n, dev)
@@ -173,10 +215,12 @@ def keygen_galois_one(ring: RingView, key, sk: SecretKey, g: int, groups=None,
         # k' = sigma^-1(k) generated directly: k'0 = -a·sigma^-1(s) + e + P·g_j·s
         src_i, neg_i = polyops.galois_perm_coeff(pow(g, -1, 2 * n), n, dev)
         under = dataclasses.replace(sk, s_ntt_mont_qp=_galois_target(ring, sk, src_i, neg_i))
-        kk = ks_keygen(ring, key, under, sk.s_ntt_mont_qp, groups=groups)
+        kk = ks_keygen(ring, key, under, sk.s_ntt_mont_qp, groups=groups, a_seed=a_seed,
+                       noise_scale=noise_scale)
     else:
-        kk = ks_keygen(ring, key, sk, _galois_target(ring, sk, src, neg), groups=groups)
-    return GaloisKeyOne(kk.k0, kk.k1, src, neg, perm_ntt, g, inv_form)
+        kk = ks_keygen(ring, key, sk, _galois_target(ring, sk, src, neg), groups=groups,
+                       a_seed=a_seed, noise_scale=noise_scale)
+    return GaloisKeyOne(kk.k0, kk.k1, src, neg, perm_ntt, g, inv_form, kk.a_seed)
 
 
 def rotate_by_steps(ct, gk: GaloisKey, step: int, n: int, apply_galois):
@@ -201,41 +245,83 @@ def rotate_by_steps(ct, gk: GaloisKey, step: int, n: int, apply_galois):
 
 def keygen_galois(ring: RingView, key, sk: SecretKey, steps=None, max_shift: int = 8,
                   include_conj: bool = True, groups=None, elts=None,
-                  a_seed: Optional[int] = None, store_a: bool = True,
+                  a_seed: Optional[int] = None, noise_scale: int = 1, store_a: bool = True,
                   inv_form: bool = False) -> GaloisKey:
     """Default: the power-of-two chain ±2^0..±2^(max_shift-1); `steps` gives
     a custom rotation list, `elts` raw Galois elements.  Draw order as in the
     reference: one sub-key per listed element (a repeated element draws
-    nothing), the conjugation key last."""
-    if a_seed is not None or not store_a:
-        raise errors.ParameterError(
-            "seed-expanded Galois keys (a_seed, store_a=False) regenerate their "
-            "uniform half with JAX Threefry, which the port does not have")
+    nothing), the conjugation key last.  a_seed: the i-th listed element's
+    key draws its uniform half from a_seed + i, the conjugation key's from
+    a_seed + (the number listed).  store_a=False (requires a_seed) strips
+    each key's uniform half as it is made, so the set holds only the k0
+    halves and consumers regenerate k1 per use (ensure_k1)."""
+    if not store_a and a_seed is None:
+        raise errors.ParameterError("store_a=False requires a_seed (seed-expanded keys)")
     n = ring.n
     if steps is None and elts is None:
         steps = [s for j in range(max_shift) for s in (1 << j, -(1 << j))]
     gl = [polyops.steps_to_galois_elt(s, n) for s in (steps or [])]
     gl += [int(g) for g in (elts or [])]
     subkeys = rng.split(key, len(gl) + 1)
+    seed = lambda i: None if a_seed is None else a_seed + i
+    keep = (lambda kk: kk) if store_a else strip_seeded
     keys = {}
-    for sub, g in zip(subkeys[:-1], gl):
+    for i, (sub, g) in enumerate(zip(subkeys[:-1], gl)):
         if g not in keys:
-            keys[g] = keygen_galois_one(ring, sub, sk, g, groups=groups, inv_form=inv_form)
+            keys[g] = keep(keygen_galois_one(ring, sub, sk, g, groups=groups, a_seed=seed(i),
+                                             noise_scale=noise_scale, inv_form=inv_form))
     if include_conj:
-        keys[polyops.GALOIS_CONJ] = keygen_galois_one(ring, subkeys[-1], sk, 2 * n - 1,
-                                                      groups=groups, inv_form=inv_form)
+        keys[polyops.GALOIS_CONJ] = keep(keygen_galois_one(
+            ring, subkeys[-1], sk, 2 * n - 1, groups=groups, a_seed=seed(len(gl)),
+            noise_scale=noise_scale, inv_form=inv_form))
     return GaloisKey(keys)
 
 
-def ensure_k1(kk):
-    """The uniform half k1 of a KSKey or GaloisKeyOne.  A stripped key
-    (k1=None, seed-expanded) would regenerate it with JAX Threefry, which the
-    port does not have."""
-    if kk.k1 is None:
+# =========================================================================
+# Seed-expanded keys: the uniform halves dropped and regenerated from a_seed
+# =========================================================================
+
+def strip_seeded(obj):
+    """Drop the regenerable uniform halves of seed-expanded keys (PublicKey,
+    KSKey, GaloisKeyOne, GaloisKey); anything else passes through."""
+    if isinstance(obj, PublicKey) and obj.a_seed is not None:
+        return dataclasses.replace(obj, pk1=None)
+    if isinstance(obj, (KSKey, GaloisKeyOne)) and obj.a_seed is not None:
+        return dataclasses.replace(obj, k1=None)
+    if isinstance(obj, GaloisKey):
+        return GaloisKey({k: strip_seeded(v) for k, v in obj.keys.items()})
+    return obj
+
+
+def ensure_k1(ring, kk):
+    """The uniform half k1 of a KSKey or GaloisKeyOne: the stored one, or
+    for a stripped key (k1=None) the one regenerated from its a_seed on the
+    ring's device (one K7 launch on the card).  `ring` is the RingView of
+    the basis the key was made in, or a function of no arguments that
+    returns it, called only for a stripped key.  A stripped key with no
+    seed raises."""
+    if kk.k1 is not None:
+        return kk.k1
+    if kk.a_seed is None:
+        raise errors.ParameterError("key has no stored k1 and no a_seed to regenerate it")
+    if callable(ring):
+        ring = ring()
+    if tuple(kk.k0.shape[-2:]) != (len(ring.qp_primes), ring.n):
         raise errors.ParameterError(
-            "key has no stored k1: seed-expanded keys regenerate their uniform "
-            "half with JAX Threefry, which the port does not have")
-    return kk.k1
+            f"a {tuple(kk.k0.shape)} key regenerated on a ring of {len(ring.qp_primes)} limbs "
+            f"and N={ring.n}: pass the ring of the basis the key was made in")
+    return _seeded_a(ring, kk.a_seed, int(kk.k0.shape[0]), mont=True)
+
+
+def expand_seeded(obj, ring: RingView):
+    """Inverse of strip_seeded: regenerate the dropped halves."""
+    if isinstance(obj, PublicKey) and obj.pk1 is None:
+        return dataclasses.replace(obj, pk1=_seeded_a(ring, obj.a_seed, None, mont=True))
+    if isinstance(obj, (KSKey, GaloisKeyOne)) and obj.k1 is None:
+        return dataclasses.replace(obj, k1=ensure_k1(ring, obj))
+    if isinstance(obj, GaloisKey):
+        return GaloisKey({k: expand_seeded(v, ring) for k, v in obj.keys.items()})
+    return obj
 
 
 # =========================================================================

@@ -242,6 +242,52 @@ class DivRoundLastq:
         return self.plain(x)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class DivExactT:
+    """BGV's t-exact division by the last modulus q_last (a special prime or a
+    dropped level): out_j = (x_j + t·v) · q_last^-1 mod q_j with v =
+    [-x_last · t^-1]_{q_last}, centered.  x + t·v is divisible by q_last, so
+    the division is exact and the phase stays congruent to the message mod t
+    up to the factor q_last^-1 mod t.  On the card it runs as a chain of one
+    in K6's t-exact mode."""
+    qbase: Base                # remaining moduli
+    t: int
+    half: int                  # floor(q_last/2)
+    neg_tinv: int              # [-t^-1]_{q_last}
+    t_mod: torch.Tensor        # (k,) t mod q_j
+    pinv_mod: torch.Tensor     # (k,) q_last^-1 mod q_j
+    p_last: int                # q_last
+
+    @staticmethod
+    def build(q_primes: Sequence[int], p_last: int, t: int, device) -> "DivExactT":
+        return DivExactT(
+            qbase=Base.build(q_primes, device), t=int(t), half=int(p_last) // 2,
+            neg_tinv=(-pow(int(t), -1, int(p_last))) % int(p_last),
+            t_mod=mm.u32_to_i32([int(t) % qj for qj in q_primes]).to(device),
+            pinv_mod=mm.u32_to_i32([pow(int(p_last), -1, qj) for qj in q_primes]).to(device),
+            p_last=int(p_last))
+
+    def plain(self, x):
+        """x: (..., k+1, N) coeff-domain over q_0..q_{k-1}, q_last -> (..., k, N),
+        as int64 torch passes."""
+        pj = self.qbase.col()
+        v = torch.remainder(x[..., -1:, :].to(mm.I64) * self.neg_tinv, self.p_last)
+        v = torch.where(v > self.half, v - self.p_last, v)
+        num = x[..., :-1, :].to(mm.I64) + torch.remainder(v * self.t, pj)
+        return mm.mul_mod(torch.remainder(num, pj), self.pinv_mod.to(mm.I64)[:, None], pj)
+
+    @functools.cached_property
+    def chain(self) -> "DivRoundChain":
+        """This stage as K6's t-exact chain of one, packed at first use."""
+        return DivRoundChain.build((self,))
+
+    def __call__(self, x):
+        if x.is_cuda:
+            return div_round_cuda(x.contiguous(), self.chain)
+        _check_cpu(x)
+        return self.plain(x)
+
+
 # The most stages one K6 launch runs (a template parameter of divround.cu).
 DIV_ROUND_MAX_STAGES = 16
 
@@ -260,31 +306,48 @@ class DivRoundChain:
     stage s (j-major) the four words (h_sj, P_s^-1 mod q_j, its Shoup
     companion, 0), zero where limb j is gone by stage s.  h_sj is
     floor(P_s/2) mod q_j plus the least multiple of q_j that is at least P_s,
-    so that x_j + h_sj - r_s is never negative for a rounding term r_s < P_s."""
+    so that x_j + h_sj - r_s is never negative for a rounding term r_s < P_s.
+
+    A chain of DivExactT stages (`exact_t`) runs K6's t-exact mode: its head
+    holds [-t^-1]_{P_s} and its Shoup companion for each stage after P_s and
+    floor(P_s/2), and its four words per limb and stage are ([t]_{q_j}, its
+    Shoup companion, P_s^-1 mod q_j, its Shoup companion)."""
     stages: tuple
     tab: torch.Tensor
     max_prime: int
+    exact_t: bool = False
 
     @staticmethod
     def build(stages) -> "DivRoundChain":
         stages = tuple(stages)
+        exact_t = isinstance(stages[0], DivExactT)
+        if any(isinstance(st, DivExactT) != exact_t for st in stages):
+            raise ValueError("a chain takes rounding stages or t-exact stages, not both")
         q = [int(v) for v in stages[0].qbase.p.tolist()]
         for s, (a, b) in enumerate(zip(stages, stages[1:])):
             if len(b.qbase) != len(a.qbase) - 1 or b.p_last != q[len(a.qbase) - 1]:
                 raise ValueError(f"stage {s + 1} does not divide by the last limb that "
                                  f"stage {s} leaves")
         p, w = len(stages), len(q)
-        head = [st.p_last for st in stages] + [st.half for st in stages] + q
+        head = [st.p_last for st in stages] + [st.half for st in stages]
+        if exact_t:
+            head += [st.neg_tinv for st in stages]
+            head += [mm.shoup(st.neg_tinv, st.p_last) for st in stages]
+        head += q
         head += [0] * (-len(head) % 4)
         body = np.zeros((w, p, 4), np.uint32)
         for s, st in enumerate(stages):
             for j, qj in enumerate(q[:w - s]):
                 inv = pow(st.p_last, -1, qj)
-                body[j, s] = (st.half % qj + -(-st.p_last // qj) * qj, inv,
-                              mm.shoup(inv, qj), 0)
+                if exact_t:
+                    tq = st.t % qj
+                    body[j, s] = (tq, mm.shoup(tq, qj), inv, mm.shoup(inv, qj))
+                else:
+                    body[j, s] = (st.half % qj + -(-st.p_last // qj) * qj, inv,
+                                  mm.shoup(inv, qj), 0)
         tab = mm.u32_to_i32(np.concatenate([np.array(head, np.uint32), body.ravel()]))
         return DivRoundChain(stages=stages, tab=tab.to(stages[0].qbase.p.device),
-                             max_prime=max(q + [st.p_last for st in stages]))
+                             max_prime=max(q + [st.p_last for st in stages]), exact_t=exact_t)
 
     @functools.cached_property
     def pieces(self) -> tuple:
@@ -324,7 +387,8 @@ def div_round_chain_plain(x, chain: DivRoundChain):
 def div_round_cuda(x, chain: DivRoundChain):
     """Launch K6: every stage of the chain in one pass over x (..., k+p, N)
     -> (..., k, N); a chain of more than DIV_ROUND_MAX_STAGES stages in one
-    launch for each of its pieces."""
+    launch for each of its pieces.  A chain of DivExactT stages runs the
+    t-exact mode (counted as `div_exact_t`)."""
     from .. import kernels
     _check_cuda(x, chain.tab)
     p, k, N = len(chain), chain.k, x.shape[-1]
@@ -337,9 +401,11 @@ def div_round_cuda(x, chain: DivRoundChain):
     for piece in chain.pieces:
         kp = piece.k
         out = torch.empty(x.shape[:-2] + (kp, N), dtype=mm.I32, device=x.device)
-        err = kernels.library().hf_div_round(x.data_ptr(), out.data_ptr(), piece.tab.data_ptr(),
-                                             B, kp, len(piece), N, kernels.stream_of(x))
-        kernels.check(err, "div_round")
-        kernels.launches["div_round"] += 1
+        name = "div_exact_t" if chain.exact_t else "div_round"
+        err = getattr(kernels.library(), f"hf_{name}")(
+            x.data_ptr(), out.data_ptr(), piece.tab.data_ptr(), B, kp, len(piece), N,
+            kernels.stream_of(x))
+        kernels.check(err, name)
+        kernels.launches[name] += 1
         x = out
     return x

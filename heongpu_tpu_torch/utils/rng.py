@@ -1,7 +1,14 @@
 """Sampling facade: uniform / gaussian / ternary draws directly into RNS form
 (port of heongpu_tpu/utils/rng.py).
 
-Two sources behind one facade; every sampler takes either as `key`:
+Three sources behind one facade; every sampler takes any of them as `key`:
+
+  * a `ThreefryKey` (`new_key(seed)`): the reference's JAX Threefry key,
+    bit for bit (utils/threefry.py).  `split`, `bits32` and `uniform_rns`
+    take it, and a uniform draw on the card is one K7 launch; this is the
+    source of seed-expanded keys (`a_seed`).  Its gaussian, ternary and
+    shuffle draws (jax.random's float and permutation algorithms) and
+    `fold_in` are not ported and raise errors.ParameterError;
 
   * a `CtrDrbg` (utils/drbg.py, NIST SP 800-90A AES-CTR): bytes drawn on the
     host in the reference's order and transformed as the reference does, so
@@ -12,23 +19,55 @@ Two sources behind one facade; every sampler takes either as `key`:
     the source for full-width runs on the card.  It gives other numbers than
     Threefry from the same seed.
 
-Both are streams: `split` hands back the same source, and successive draws
-continue it.  Samplers return int32 residues of shape (L,) + shape on
-`device`.
+The DRBG and the generator are streams: `split` hands back the same
+source, and successive draws continue it.  A ThreefryKey splits as
+jax.random.split does.  Samplers return int32 residues of shape (L,) + shape
+on `device`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import os
 
 import numpy as np
 import torch
 
 from ..ops import modmath as mm
 from . import drbg as _drbg
+from . import errors, threefry
 
 ERROR_STD_DEV = 3.2  # sigma of the centered discrete gaussian
 GAUSS_TAIL = 6       # truncate at 6 sigma
+
+
+@dataclasses.dataclass(frozen=True)
+class ThreefryKey:
+    """A jax.random Threefry key: its two 32-bit words, and the device its
+    draws go to."""
+    words: tuple
+    device: torch.device
+
+
+def new_key(seed: int | None = None, device="cuda") -> ThreefryKey:
+    """jax.random.PRNGKey(seed) (the words (0, seed mod 2^32)), drawing on
+    `device` (the card unless the caller asks for the CPU); seeded from OS
+    entropy when no seed is given."""
+    if seed is None:
+        seed = int.from_bytes(os.urandom(8), "little") >> 1
+    return ThreefryKey(threefry.key_from_seed(seed), torch.device(device))
+
+
+def is_threefry(key) -> bool:
+    return isinstance(key, ThreefryKey)
+
+
+def _no_threefry(key, what: str):
+    if is_threefry(key):
+        raise errors.ParameterError(
+            f"{what} on a Threefry key (jax.random's algorithm for it) is not ported; "
+            "draw from a DRBG or a torch.Generator")
 
 
 def new_generator(seed: int, device="cuda") -> torch.Generator:
@@ -50,7 +89,10 @@ def is_drbg(key) -> bool:
 
 
 def split(key, num: int = 2):
-    """Both sources are streams: every sub-key is the source itself."""
+    """A ThreefryKey splits as jax.random.split does; the streams hand back
+    the source itself as every sub-key."""
+    if is_threefry(key):
+        return tuple(ThreefryKey(w, key.device) for w in threefry.split_np(key.words, num))
     return (key,) * num
 
 
@@ -59,6 +101,7 @@ def fold_in(key, data: int):
     reference, so a DRBG key set is drawn in the reference's order.  A
     torch.Generator gives a new generator on its device, seeded from a hash
     of its current state and `data`; the parent's state does not move."""
+    _no_threefry(key, "fold_in")
     if is_drbg(key):
         return key
     state = key.get_state().cpu().numpy().tobytes()
@@ -71,6 +114,8 @@ def _numel(shape) -> int:
 
 
 def _gen_device(key, device):
+    """The device of a generator's or a Threefry key's draws, which must be
+    the one asked for."""
     d, g = torch.device(device), key.device
     if d.type != g.type or (None not in (d.index, g.index) and d.index != g.index):
         raise ValueError(f"generator on {key.device}, draws wanted on {device}")
@@ -82,12 +127,15 @@ def bits32(key, shape, device) -> torch.Tensor:
     if is_drbg(key):
         w = key.bits32(_numel(shape)).astype(np.int64).reshape(shape)
         return torch.from_numpy(w).to(device)
+    if is_threefry(key):
+        return threefry.bits32(key.words, shape, _gen_device(key, device))
     return torch.randint(0, 1 << 32, tuple(shape), generator=key,
                          device=_gen_device(key, device), dtype=mm.I64)
 
 
 def randint(key, shape, lo: int, hi: int, device) -> torch.Tensor:
     """Uniform integers in [lo, hi) as int32."""
+    _no_threefry(key, "randint")
     if is_drbg(key):
         u = key.bits64(_numel(shape))
         v = (lo + (u % (hi - lo))).astype(np.int64).reshape(shape)
@@ -98,6 +146,7 @@ def randint(key, shape, lo: int, hi: int, device) -> torch.Tensor:
 
 def normal(key, shape, device) -> torch.Tensor:
     """Standard normal draws as float32."""
+    _no_threefry(key, "normal")
     if is_drbg(key):
         n = _numel(shape)
         # Box-Muller over DRBG uniforms in (0, 1], float64 then float32
@@ -110,6 +159,7 @@ def normal(key, shape, device) -> torch.Tensor:
 
 
 def permutation(key, n: int, device) -> torch.Tensor:
+    _no_threefry(key, "permutation")
     if is_drbg(key):
         return torch.from_numpy(np.argsort(key.bits64(n)).astype(np.int64)).to(device)
     return torch.randperm(n, generator=key, device=_gen_device(key, device))
@@ -122,7 +172,10 @@ def _primes_col(primes, ndim: int, device):
 
 def uniform_rns(key, primes, shape, device) -> torch.Tensor:
     """Uniform in [0, p) independently per limb, from 64 random bits per
-    element (bias < 2^-34); output (L,) + shape."""
+    element (bias < 2^-34); output (L,) + shape.  Over a ThreefryKey: the
+    reference's bits, one K7 launch on the card."""
+    if is_threefry(key):
+        return threefry.uniform_rns(key.words, primes, shape, _gen_device(key, device))
     full = (len(primes),) + tuple(shape)
     k_hi, k_lo = split(key)
     hi = bits32(k_hi, full, device)

@@ -1,8 +1,9 @@
 // Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu, keyswitch.cu, ntt.cu,
-// mac.cu and divround.cu use, so that their device code compiles with a C++20 host
+// mac.cu, divround.cu and threefry.cu use, so that their device code compiles with a C++20 host
 // compiler and runs one block at a time with one std::thread per CUDA thread
 // (tests/test_torch_tfhe_host_kernel.py, tests/test_torch_keyswitch_host_kernel.py,
-// tests/test_torch_ntt_host_kernel.py, tests/test_torch_rns_host_kernel.py).
+// tests/test_torch_ntt_host_kernel.py, tests/test_torch_rns_host_kernel.py,
+// tests/test_torch_threefry_host_kernel.py).
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -36,6 +37,11 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
 }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+// the high word of (hi:lo) << (shift mod 32)
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t shift) {
+  shift &= 31u;
+  return shift ? (hi << shift) | (lo >> (32u - shift)) : hi;
+}
 void __syncthreads();
 void __syncwarp(unsigned mask = 0xffffffffu);
 

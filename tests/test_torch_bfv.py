@@ -269,12 +269,14 @@ def test_switch_key(pair):
 def test_seeded_inputs_raise(pair):
     _, t, _, _ = pair
     tc, sk = t["ctx"], t["sk"]
+    # seeded keys are made now; a key stripped of its uniform half with no seed
+    # to regenerate it from still raises where it is used
     g = trng.new_generator(3, "cpu")
-    for fn in (lambda: tbfv.keygen_public(tc, g, sk, a_seed=7),
-               lambda: tbfv.keygen_relin(tc, g, sk, a_seed=7),
-               lambda: tbfv.keygen_galois(tc, g, sk, steps=[1], a_seed=7),
-               lambda: tbfv.relinearize(tc, tbfv.multiply(tc, t["ct1"], t["ct2"]),
-                                        dataclasses.replace(t["rk"], k1=None))):
+    assert tbfv.keygen_relin(tc, g, sk, a_seed=7).a_seed == 7
+    prod = tbfv.multiply(tc, t["ct1"], t["ct2"])
+    for fn in (lambda: tbfv.relinearize(tc, prod, dataclasses.replace(t["rk"], k1=None)),
+               lambda: tbfv.rotate_rows(tc, t["ct1"], tbfv.GaloisKey(
+                   {e: dataclasses.replace(k, k1=None) for e, k in t["gk"].keys.items()}), 1)):
         with pytest.raises(terrors.ParameterError):
             fn()
     with pytest.raises(terrors.ParameterError):

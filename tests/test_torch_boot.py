@@ -26,6 +26,7 @@ from heongpu_tpu.utils import rng as jrng  # noqa: E402
 from heongpu_tpu_torch import interop  # noqa: E402
 from heongpu_tpu_torch.models import ckks as tckks  # noqa: E402
 from heongpu_tpu_torch.models import ckks_boot as tboot  # noqa: E402
+from heongpu_tpu_torch.models import ringkit as tring  # noqa: E402
 from heongpu_tpu_torch.ops import modmath as tm  # noqa: E402
 from heongpu_tpu_torch.ops import ntt as tntt  # noqa: E402
 from heongpu_tpu_torch.utils import errors as terrors  # noqa: E402
@@ -129,11 +130,21 @@ def test_boot_diagonals_within_three_of_reference(drbg_keys):
 
 
 def test_compress_keys_is_not_ported(drbg_keys):
-    tctx = drbg_keys[0]
+    """compress_keys=True (ported since this test was named): the set's
+    Galois and relin keys are stored stripped, each with its seed, at the
+    shapes of the full set, and each regenerates its uniform half over the
+    basis it was made in.  No two keys share a Threefry key (their seeds
+    differ mod 2^32).  A chain too short for the configuration raises."""
+    tctx, _, tkeys = drbg_keys
     sk = tckks.keygen_secret(tctx, trng.new_generator(1, "cpu"))
-    with pytest.raises(terrors.ParameterError, match="seed"):
-        tboot.generate_bootstrap_keys(tctx, trng.new_generator(2, "cpu"), sk,
-                                      tboot.BootConfig(**CFG), compress_keys=True)
+    keys = tboot.generate_bootstrap_keys(tctx, trng.new_generator(2, "cpu"), sk,
+                                         tboot.BootConfig(**CFG), compress_keys=True)
+    assert sorted(map(str, keys.gk.keys)) == sorted(map(str, tkeys.gk.keys))
+    for k, full in [(keys.rk, tkeys.rk)] + [(k, tkeys.gk.keys[e]) for e, k in keys.gk.keys.items()]:
+        assert k.k1 is None and k.a_seed is not None and k.k0.shape == full.k0.shape
+        assert tring.ensure_k1(tckks._key_ring(tctx, k), k).shape == full.k1.shape
+    seeds = [keys.rk.a_seed] + [k.a_seed for k in keys.gk.keys.values()]
+    assert len({s % 2 ** 32 for s in seeds}) == len(seeds)
     with pytest.raises(terrors.ParameterError, match="prime Q chain"):
         tboot.generate_bootstrap_keys(tctx, trng.new_generator(2, "cpu"), sk,
                                       tboot.BootConfig(taylor_degree=9, exp_squarings=6))

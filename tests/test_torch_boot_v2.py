@@ -152,9 +152,13 @@ def test_options_not_ported_raise():
     ctx = tckks.make_context(N, Q_BITS, device="cpu", **CTX_KW)
     sk = tckks.keygen_secret(ctx, trng.new_generator(1, "cpu"), hamming_weight=16)
     cfg = text.BootConfigV2(**CFG)
-    with pytest.raises(terrors.ParameterError, match="seed"):
-        text.generate_bootstrap_keys_v2(ctx, trng.new_generator(2, "cpu"), sk, cfg,
-                                        compress_keys=True)
+    # compress_keys=True is ported: the keys come stripped, each with a seed of its own
+    keys = text.generate_bootstrap_keys_v2(ctx, trng.new_generator(2, "cpu"), sk, cfg,
+                                           compress_keys=True)
+    assert keys.rk.k1 is None and all(k.k1 is None and k.a_seed is not None
+                                      for k in keys.gk.keys.values())
+    seeds = [keys.rk.a_seed] + [k.a_seed for k in keys.gk.keys.values()]
+    assert len({s % 2 ** 32 for s in seeds}) == len(seeds)
     with pytest.raises(terrors.ParameterError, match="mesh"):
         text.generate_bootstrap_keys_v2(ctx, trng.new_generator(2, "cpu"), sk, cfg, limb_align=2)
     with pytest.raises(terrors.ParameterError, match="mesh"):

@@ -128,6 +128,75 @@ def test_div_round_kernel_matches_plain(dev, k, p, n):
         _equal(stages[0](x), got)
 
 
+@pytest.mark.parametrize("k,p,n", [(29, 1, 32768), (1, 1, 256), (12, 3, 4096), (5, 20, 256)])
+def test_div_exact_t_kernel_matches_plain(dev, k, p, n):
+    """K6's t-exact mode (BGV's divisions) against the stages one after
+    another: BGV's keyswitch ÷P on the 29-prime chain at N=2^15, a chain of 3,
+    and one of 20 in two launches; columns whose centered v sits on either
+    side of q_last/2."""
+    from heongpu_tpu_torch import kernels
+    t = tnt.generate_ntt_primes(20, 1, n)[0]
+    q = tnt.generate_ntt_primes(29, k, n)
+    specials = tnt.generate_ntt_primes(30, p, n)
+    stages, remaining = [], q + specials
+    for sp in reversed(specials):
+        remaining = remaining[:-1]
+        stages.append(trns.DivExactT.build(remaining, sp, t, dev))
+    chain = trns.DivRoundChain.build(stages)
+    x = _residues(np.random.default_rng(k + p), (q + specials) * 2, (2 * (k + p), n), dev)
+    x = x.view(2, k + p, n)
+    ql = specials[-1]
+    for col, v in enumerate((0, ql // 2, ql // 2 + 1, ql - 1)):
+        x[1, -1, col] = (-t * v) % ql
+    before = kernels.launches["div_exact_t"], kernels.launches["div_round"]
+    got = chain(x)
+    assert (kernels.launches["div_exact_t"], kernels.launches["div_round"]) == (
+        before[0] + len(chain.pieces), before[1])
+    _equal(got, trns.div_round_chain_plain(x, chain))
+    if p == 1:
+        _equal(stages[0](x), got)
+
+
+@pytest.mark.parametrize("limbs,shape,moved,mont", [
+    (3, (256,), False, False), (5, (4, 256), True, True), (54, (12, 65536), True, True),
+    (30, (29, 32768), True, True), (30, (32768,), False, True), (3, (2, 4, 100), False, False)])
+def test_threefry_kernel_matches_plain(dev, limbs, shape, moved, mont):
+    """K7 against the plain int64 Threefry draw: one row, d rows moved behind
+    the limb axis (the regenerated key halves: the depth-48 bootstrap's
+    (12, 54, 2^16), BGV's relin key (29, 30, 2^15)), a public key's row, and
+    a draw of three axes."""
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.utils import threefry as ttf
+    n = 65536 if limbs == 54 else 32768 if limbs == 30 else 256
+    primes = tnt.generate_ntt_primes(29, limbs - 1, n) + tnt.generate_ntt_primes(30, 1, n)
+    key = ttf.key_from_seed(2 ** 34 + limbs)
+    before = kernels.launches["threefry_uniform"]
+    got = ttf.uniform_rns(key, primes, shape, dev, moved=moved, mont=mont)
+    assert kernels.launches["threefry_uniform"] == before + 1
+    _equal(got, ttf.uniform_rns_plain(key, primes, shape, dev, moved=moved, mont=mont))
+
+
+def test_seeded_keys_on_card_match_cpu(dev):
+    """A BGV relin key made seed-expanded on the card equals the CPU's (one
+    DRBG seed), and a stripped copy regenerates its k1 with one K7 launch."""
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import bgv, ringkit
+    from heongpu_tpu_torch.utils import rng
+    out = {}
+    for d in ("cpu", dev):
+        ctx = bgv.make_context(1024, 12289, q_bits=[29] * 3, device=d)
+        drbg = rng.new_drbg(b"q" * 32)
+        sk = bgv.keygen_secret(ctx, drbg)
+        out[str(d)] = (ctx, bgv.keygen_relin(ctx, drbg, sk, a_seed=2 ** 33 + 1))
+    (_, rk_c), (ctx, rk_d) = out["cpu"], out[str(dev)]
+    _equal(rk_d.k0.cpu(), rk_c.k0)
+    _equal(rk_d.k1.cpu(), rk_c.k1)
+    before = kernels.launches["threefry_uniform"]
+    k1 = ringkit.ensure_k1(bgv._ring(ctx), ringkit.strip_seeded(rk_d))
+    assert kernels.launches["threefry_uniform"] == before + 1
+    _equal(k1, rk_d.k1)
+
+
 def test_wrappers_reject_bad_input(dev):
     n = 256
     primes = tnt.generate_ntt_primes(29, 2, n)

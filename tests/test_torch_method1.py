@@ -135,8 +135,8 @@ def test_keyswitch_core_phases(ring_tables, in_ntt):
 def test_stripped_key_raises():
     kk = tring.KSKey(torch.zeros((1, 2, 4), dtype=torch.int32), None)
     with pytest.raises(terrors.ParameterError):
-        tring.ensure_k1(kk)
-    assert tring.ensure_k1(tring.KSKey(kk.k0, kk.k0)) is kk.k0
+        tring.ensure_k1(None, kk)     # no seed: raises before it reads the ring
+    assert tring.ensure_k1(None, tring.KSKey(kk.k0, kk.k0)) is kk.k0
 
 
 # ---------------------------------------------------------------------------

@@ -79,27 +79,31 @@ int launch_base_conv(const ConvParams& P, dim3 grid, cudaStream_t) {
   return 0;
 }
 """),
-    "divround": ("template <int P>\nint launch_div_round(", 'extern "C" int hf_div_round', """
-template <int P>
+    "divround": ("template <int P, bool EXACT>\nint launch_div_round(",
+                 "template <bool EXACT>\nint div_chain(", """
+template <int P, bool EXACT>
 int launch_div_round(const DivParams& A, int B, cudaStream_t) {
   if (A.words * sizeof(uint32_t) > sizeof(sm)) return 1;
   const dim3 grid{static_cast<unsigned>((A.N + kThreads - 1) / kThreads),
                   static_cast<unsigned>(B), 1u};
-  run_grid(grid, [&] { div_round_kernel<P>(A); });
+  run_grid(grid, [&] { div_round_kernel<P, EXACT>(A); });
   return 0;
 }
 """),
 }
 
 
-def host_source(stem: str) -> str:
-    """The source's text with its launch replaced by a host run of the grid, and
-    only its entry point named `entry` kept (renamed host_*)."""
-    launch_at, entry_at, launch = SOURCES[stem]
+def host_source(stem: str, sources=None) -> str:
+    """The source's text with its launch function replaced by a host run of the
+    grid, and the rest of the source kept from `keep_from` on (entry points
+    renamed host_*; a tail that starts outside the anonymous namespace gets the
+    namespace closed before it)."""
+    launch_at, keep_from, launch = (sources or SOURCES)[stem]
     src = (build.CSRC / f"{stem}.cu").read_text()
-    entry = src.index(entry_at)
-    tail = src[entry:].replace("hf_", "host_")
-    return HARNESS + src[:src.index(launch_at)] + RUN_GRID + launch + "}  // namespace\n\n" + tail
+    keep = src.index(keep_from)
+    tail = src[keep:].replace("hf_", "host_")
+    close = "}  // namespace\n\n" if keep > src.index("}  // namespace") else ""
+    return HARNESS + src[:src.index(launch_at)] + RUN_GRID + launch + close + tail
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +119,8 @@ def host_libs(tmp_path_factory):
                       capture_output=True).returncode:
         pytest.skip("the host compiler has no C++20 <barrier>")
     libs = {}
-    for stem, name in (("mac", "hf_base_conv"), ("divround", "hf_div_round")):
+    for stem, names in (("mac", ("hf_base_conv",)),
+                        ("divround", ("hf_div_round", "hf_div_exact_t"))):
         cpp = d / f"{stem}_host.cpp"
         cpp.write_text(host_source(stem))
         so = d / f"lib{stem}_host.so"
@@ -123,10 +128,13 @@ def host_libs(tmp_path_factory):
                               f"-I{SHIMS}", f"-I{build.CSRC}", "-o", str(so), str(cpp)],
                              capture_output=True, text=True, timeout=600)
         assert res.returncode == 0, res.stderr[-4000:]
-        fn = getattr(ctypes.CDLL(str(so)), name.replace("hf_", "host_"))
-        fn.argtypes = build.SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        libs[stem] = fn
+        lib = ctypes.CDLL(str(so))
+        for name in names:
+            fn = getattr(lib, name.replace("hf_", "host_"))
+            fn.argtypes = build.SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            libs[name[3:]] = fn
+    libs["mac"], libs["divround"] = libs["base_conv"], libs["div_round"]
     return libs
 
 
@@ -277,3 +285,42 @@ def test_div_round_source_rejects_more_than_sixteen_stages(host_libs):
     out = torch.empty((2, 256), dtype=tm.I32)
     assert host_libs["divround"](x.data_ptr(), out.data_ptr(), chain.tab.data_ptr(), 1, 2, 17,
                                  256, None) != 0
+
+
+def _exact_chain(k, p, q_bits, t):
+    """A chain of p DivExactT stages over k Q primes of q_bits bits and p 30-bit
+    special primes (BGV's encryption chain when p = 1), plain modulus t."""
+    n = 4096
+    q = tnt.generate_ntt_primes(q_bits, k, n)
+    specials = tnt.generate_ntt_primes(30, p, n)
+    stages, remaining = [], q + specials
+    for sp in reversed(specials):
+        remaining = remaining[:-1]
+        stages.append(trns.DivExactT.build(remaining, sp, t, "cpu"))
+    return trns.DivRoundChain.build(stages), q + specials
+
+
+@pytest.mark.parametrize("k,p,q_bits", [(1, 1, 29), (4, 1, 29), (29, 1, 29), (12, 3, 28),
+                                        (5, 16, 29)])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_div_exact_t_source_on_host_matches_plain(host_libs, k, p, q_bits, n):
+    """K6's t-exact mode (BGV's ÷P and mod switch) against the plain stage loop,
+    with columns whose centered v is 0, floor(q_last/2) (the largest kept
+    positive), floor(q_last/2) + 1 (the first negative) and q_last - 1."""
+    t = tnt.generate_ntt_primes(20, 1, 4096)[0]
+    chain, primes = _exact_chain(k, p, q_bits, t)
+    assert chain.exact_t
+    rng = np.random.default_rng(k * 10 + p + n + 7)
+    x = _residues(rng, primes * 2, (2 * (k + p), n)).view(2, k + p, n)
+    ql = primes[-1]
+    for col, v in enumerate((0, ql // 2, ql // 2 + 1, ql - 1)):
+        x[1, -1, col] = (-t * v) % ql      # v = [-x_last t^-1]_{q_last}
+    x[0, :, :2] = torch.tensor(primes, dtype=tm.I32)[:, None] - 1
+    err, got = run_div_round(host_libs["div_exact_t"], x, chain)
+    assert err == 0
+    want = trns.div_round_chain_plain(x, chain)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, chain(x), rtol=0, atol=0)
+    # the rounding mode's entry on the same table reads other words: it must differ
+    err, other = run_div_round(host_libs["div_round"], x, chain)
+    assert err == 0 and not torch.equal(other, want)

@@ -8,6 +8,7 @@ keys), the reference's Threefry keys and ciphertexts are carried over with
 Galois keys from one DRBG seed must equal the reference's.  A port-own run
 (torch.Generator keys) must decode within 1e-3."""
 
+import dataclasses
 import inspect
 
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ from heongpu_tpu.models import ckks as jckks  # noqa: E402
 from heongpu_tpu.ops import polyops as jpoly  # noqa: E402
 from heongpu_tpu.utils import rng as jrng  # noqa: E402
 from heongpu_tpu_torch import interop  # noqa: E402
+from heongpu_tpu_torch.models import bgv as tbgv  # noqa: E402
 from heongpu_tpu_torch.models import ckks as tckks  # noqa: E402
 from heongpu_tpu_torch.models import tfhe as ttfhe  # noqa: E402
 from heongpu_tpu_torch.ops import modmath as tm  # noqa: E402
@@ -247,17 +249,29 @@ def test_rotation_misuse_raises(plain_keys):
                                 if e == tpoly.steps_to_galois_elt(2, N)})
     with pytest.raises(ValueError):
         tckks.rotate(ctx, t["ct"], only_two, 1)
+    # a key stored without its uniform half and with no seed to regenerate it
+    g1 = tpoly.steps_to_galois_elt(1, N)
+    stripped = tckks.GaloisKey({g1: dataclasses.replace(t["gk"].keys[g1], k1=None)})
     with pytest.raises(terrors.ParameterError):
-        tckks.keygen_galois(ctx, trng.new_generator(1, "cpu"), None, steps=[1], a_seed=5)
+        tckks.rotate(ctx, t["ct"], stripped, 1)
     with pytest.raises(terrors.ParameterError):
         tckks.keygen_galois(ctx, trng.new_generator(1, "cpu"), None, steps=[1], store_a=False)
 
 
 def test_entry_points_default_to_the_card():
-    fns = [tckks.make_context, ttfhe.make_context, ttfhe.keygen_secret, trng.new_generator]
+    fns = [tckks.make_context, ttfhe.make_context, ttfhe.keygen_secret, trng.new_generator,
+           tbgv.make_context, trng.new_key]
     fns += [getattr(interop, f) for f in dir(interop) if f.endswith("_from_numpy")]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    # the BGV keygens draw on their context's device, and a Threefry key's draws on
+    # the key's: the card unless the caller asks for the CPU
+    for fn in (tbgv.keygen_secret, tbgv.keygen_public, tbgv.keygen_relin, tbgv.keygen_galois,
+               tbgv.keygen_switch):
+        assert "device" not in inspect.signature(fn).parameters, fn.__name__
+    assert trng.new_key(3).device.type == "cuda"
+    bctx = tbgv.make_context(256, 7681, q_bits=[29, 29], device="cpu")
+    assert tbgv.keygen_secret(bctx, trng.new_drbg(b"d" * 32)).s_ntt_mont_qp.device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             tckks.make_context(256, [29] * 3)
