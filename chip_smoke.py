@@ -46,6 +46,13 @@ also bootstraps on the compressed depth-48 key set, whose stripped keys
 regenerate their uniform halves with K7 (Threefry-2x32, bit-identical to
 jax.random) at every use.
 
+Then drives multiparty computation with three parties on Threefry keys
+(rng.new_key, every draw jax.random's): BFV at N=2^15 on phase 15's default
+chain and CKKS Method I at N=2^16 on phase 16's shape, through the
+collective keys, threshold and t-of-N decryption and collective
+bootstrapping; every Threefry bits draw on the card is one launch of K7's
+raw-words mode.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -53,9 +60,10 @@ Phases (each raises on failure, so the script exits non-zero):
      nine shape instantiations, of K1's four pass kernels at each of its
      nine shapes, of K2 base_conv's 18 (each chunk width 4..32 and the
      chunked one for k_in > 32, with and without the fused scaling) and of
-     K6's 16 (p = 1..16) in each of its two modes, and of K7; a missing line,
-     or a K1, K2, K5, K6 or K7 instance that spills, fails; K7's SASS mix
-     (cuobjdump), which must hold the funnel shifts and xors its bound counts;
+     K6's 16 (p = 1..16) in each of its two modes, and of K7's two modes; a
+     missing line, or a K1, K2, K5, K6 or K7 instance that spills, fails; K7's
+     SASS mix (cuobjdump), which must hold the funnel shifts and xors its bound
+     counts;
   3. K1 (NTT) against its plain torch version on the card, bit for bit,
      forward and inverse, N in {2^8, 2^9, 2^11, ..., 2^16} (2^10 in phase 8):
      each of its nine shape instantiations;
@@ -64,7 +72,8 @@ Phases (each raises on failure, so the script exits non-zero):
      keyswitch's at levels 0 and 1, the encryption's, one stage, 8 stages, 20
      stages in two launches; its t-exact mode at one stage over 29 + 1 limbs
      at N=2^15, 3 stages and 20) and K7 (a public key's row over 30 limbs at
-     2^15, three rows moved behind 16 limbs) against the plain versions; K5 (fused
+     2^15, three rows moved behind 16 limbs; its raw-words mode at 5, 21000 and
+     2^22 words) against the plain versions; K5 (fused
      keyswitch) against keyswitch2_fused_core_plain and against the staged
      route (K2 base_conv, K1, K2 mac_keys, K1) at N=2^12 and at N=2^16,
      levels 0 and 1 (a short last digit group at level 1);
@@ -181,6 +190,28 @@ Phases (each raises on failure, so the script exits non-zero):
      against plain, decrypted exactly against numpy mod t, the noise budget
      after each step; per-op medians, busy and idle share, key bytes; K6's
      t-exact mode and K7 timed at BGV's shapes.
+ 18. MPC, three parties, every key, share and mask from Threefry keys:
+     (a) N=256, every MPC entry point of both schemes (BFV on [29]*3 with
+     t = plain_modulus_for(256, 16), CKKS on [29, 25, 25, 25]; 3-of-5 and
+     2-of-3 Shamir) and the new draws at (2^16,) (randint, normal,
+     permutation in two sort rounds, gaussian_rns, ternary_hw, a fold_in key's
+     bits) on the card against the CPU plain path: identical residues, normal
+     within 1e-6, every decryption exact or within 5e-2; (b) BFV at N=2^15 on
+     phase 15's default chain: collective public key, 2-round relin key, a
+     collective Galois key, encrypt -> multiply -> relinearize -> rotate_rows
+     by 1, threshold decryption, collective bootstrap and decryption again,
+     3-of-5 Shamir decryption by parties (2, 4, 5), all exact; the noise
+     budget under the oracle joint key Σ s_i before and after the collective
+     bootstrap (after must be larger); (c) CKKS Method I at N=2^16 on phase
+     16's shape: the same with rescale, the collective bootstrap to level 0
+     and 2-of-3 Shamir, each decoded within 5e-2 (the max error printed).  In
+     each, launches counted from 0, every launch at a new shape held against
+     plain, K6 once per ÷P site, no plain Threefry pass on the card
+     (plain_threefry_on_card), and each protocol step's K7 launches (uniform,
+     words) equal to mpc_k7_predicted's; ms per protocol step (median of 3),
+     device busy and idle share of a threshold decryption and of a
+     collective bootstrap, the collective keys' bytes, and K7's raw-words
+     mode timed at (k, N) and (N,) against its bound.
 On every path the calls that end in one ÷P on the card (div_round_sites:
 each keyswitch, each keyswitch finish, each encryption, each BGV mod
 switch) are counted, and the path fails unless K6 launched once for each.  Phase 7 also times K2
@@ -282,6 +313,10 @@ EXACT_OPS = 2 * SHOUP_OPS + 4
 # conditional subtraction's compare and select (ISETP, SEL): THREEFRY_ALU_OPS.
 THREEFRY_OPS = 2 * (20 * 3 + 5 * 2 + 2) + 2 * 5 + 9
 THREEFRY_ALU_OPS = 2 * (20 * 2 + 1) + 4 * 2
+# one word of K7's raw-words mode: one hash (as above) and its closing xor; of
+# these the 20 funnel shifts and 21 xors run on the ALU pipe only
+THREEFRY_WORD_OPS = 20 * 3 + 5 * 2 + 2 + 1
+THREEFRY_WORD_ALU_OPS = 20 * 2 + 1
 MONT_OPS = SHOUP_OPS + 2
 MONT_ALU_OPS = 2
 
@@ -434,7 +469,8 @@ def device_idle_share(fn, reps: int, tries: int = 3):
 # are K2's and K6's templates.
 OWN_KERNEL = re.compile(r"\(anonymous namespace\)::((?:ntt_(?:fwd|inv)[12]|mac_keys_kernel|"
                         r"base_conv_kernel|div_round_kernel|keyswitch2_fused_kernel|"
-                        r"blind_rotate_kernel|threefry_uniform_kernel)(?:<[^>]*>)?)\(")
+                        r"blind_rotate_kernel|threefry_uniform_kernel|threefry_bits_kernel)"
+                        r"(?:<[^>]*>)?)\(")
 
 
 def own_kernels(per_kernel: dict) -> dict:
@@ -465,6 +501,7 @@ def kernel_wrappers():
     from heongpu_tpu_torch.utils import threefry
     return [
         (threefry, "uniform_rns_cuda", lambda *a: "threefry_uniform", threefry.uniform_rns_plain),
+        (threefry, "bits32_cuda", lambda *a: "threefry_bits", threefry.bits32_plain),
         (nttm, "ntt_cuda", lambda x, tb, inverse: "ntt_inv" if inverse else "ntt_fwd",
          lambda x, tb, inverse: (nttm.ntt_inv_plain if inverse else nttm.ntt_fwd_plain)(x, tb)),
         (rns, "mac_keys_cuda", lambda *a: "mac_keys", mac_keys_plain),
@@ -492,11 +529,13 @@ def held_shape(arg):
 
 def launch_shapes(name, args):
     """The shapes that tell a kernel's launches apart: K7's prime count, draw
-    shape and flags (its key is data), every other kernel's held_shape of
-    each argument."""
+    shape and flags (its key is data), its raw-words mode's draw shape, every
+    other kernel's held_shape of each argument."""
     if name == "threefry_uniform":
         _, primes, shape, _, moved, mont = args
         return (len(primes), tuple(shape), moved, mont)
+    if name == "threefry_bits":
+        return (tuple(args[1]),)
     return tuple(held_shape(a) for a in args if held_shape(a) is not None)
 
 
@@ -2495,6 +2534,479 @@ def bgv_phases(dev, card, errs, gen, n_small=256, n_full=BGV_N):
     return launches, rec, kern
 
 
+# MPC (phase 18): three parties, N-out-of-N and t-out-of-N, every key, share and
+# mask from Threefry keys (rng.new_key), as the JAX package's MPC tests and
+# examples draw them.  (a) N=256 on tests/test_mpc.py's chains; (b) BFV on phase
+# 15's default chain at N=2^15; (c) CKKS Method I on phase 16's shape at N=2^16.
+MPC_PARTIES = 3
+MPC_SMALL_BFV_Q_BITS = [29] * 3
+MPC_SMALL_T_BITS = 16
+MPC_SMALL_CKKS_Q_BITS = [29, 25, 25, 25]
+MPC_TOL = 5e-2          # tests/test_mpc.py:138,149: the parties' flooding of ±2^13
+MPC_SEED = 1800         # party i's keys: rng.new_key(MPC_SEED + 10·step + i)
+MPC_CRS = 777           # the common reference strings' seeds start here
+MPC_GROUP = (2, 4, 5)   # BFV's 3 of 5
+MPC_CKKS_GROUP = (1, 3)  # CKKS's 2 of 3
+
+
+def mpc_k7_predicted(name, n, threshold=0):
+    """(K7 uniform launches, K7 raw-words launches) of one call of an MPC
+    step on Threefry keys, counted from the code: a uniform RNS draw is one
+    uniform launch; a normal draw (each gaussian) one words launch, randint
+    two, permutation one a sort round."""
+    from heongpu_tpu_torch.utils import threefry
+    rounds = threefry.permutation_rounds(n)
+    words = {"keygen_secret": rounds + 2, "ternary_hw": rounds + 2, "permutation": rounds,
+             "pk_share": 1, "galois_share": 1, "normal": 1, "gaussian_rns": 1, "bits32": 1,
+             "randint": 2, "relin_round1": 2 + 1 + 1, "relin_round2": 2,
+             "encrypt": 2 + 1 + 1,  # ternary u, e0, e1
+             "bfv_decrypt_partial": 4, "bfv_decrypt_partial_threshold": 4,  # 30 + 10 bits
+             "ckks_decrypt_partial": 2, "ckks_decrypt_partial_threshold": 2,  # 13 bits
+             "bfv_colboot_participant": 2 + 4 + 1, "ckks_colboot_participant": 2 + 2 + 1}
+    uniform = {"crs_uniform": 1, "relin_crs": 1, "bfv_colboot_participant": 1,
+               "ckks_colboot_participant": 1, "bfv_colboot_coordinator": 1,
+               "ckks_colboot_coordinator": 1, "shamir_share_secret": threshold - 1}
+    return uniform.get(name, 0), words.get(name, 0)
+
+
+def mpc_stepper(n, record, check=True, calls=None):
+    """step(name, fn, *args, threshold=0): runs fn(*args), records the
+    kernel launches of the call under `name` in record[name] (the first
+    call's), and with `check` raises unless its K7 launches (uniform, words)
+    are mpc_k7_predicted's.  With `calls`, calls[name] keeps the first
+    call as a function of no arguments, for the timings."""
+    from heongpu_tpu_torch import kernels
+
+    def step(name, fn, *args, threshold=0):
+        before = dict(kernels.launches)
+        out = fn(*args)
+        got = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+        record.setdefault(name, got)
+        if calls is not None:
+            calls.setdefault(name, lambda: fn(*args))
+        have = (got.get("threefry_uniform", 0), got.get("threefry_bits", 0))
+        want = mpc_k7_predicted(name, n, threshold)
+        if check and have != want:
+            raise AssertionError(f"MPC {name}: K7 launched (uniform, words) {have}, "
+                                 f"predicted {want}")
+        return out
+    return step
+
+
+def card_device(device) -> bool:
+    """Whether draws for `device` are draws on the card."""
+    import torch
+    return torch.device(device).type == "cuda"
+
+
+@contextlib.contextmanager
+def plain_threefry_on_card(what):
+    """Counts the plain Threefry passes (threefry.bits32_plain and
+    uniform_rns_plain) that the block runs for the card, and raises unless
+    there are none: every Threefry draw of the block on the card was a K7
+    launch.  Enter it inside held_against_plain, whose comparisons call the
+    plain versions it took before and are not counted.  The word draws of a
+    plain uniform pass are part of that pass and not counted apart."""
+    from heongpu_tpu_torch.utils import threefry
+    counts, saved = {"bits32_plain": 0, "uniform_rns_plain": 0}, []
+    uniform_pass = threefry.uniform_rns_plain.__code__
+    for name in counts:
+        f = getattr(threefry, name)
+
+        def counted(key, primes_or_shape, *a, _f=f, _name=name, **k):
+            device = a[0] if _name == "bits32_plain" else (a[1] if len(a) > 1 else k["device"])
+            if card_device(device) and sys._getframe(1).f_code is not uniform_pass:
+                counts[_name] += 1
+            return _f(key, primes_or_shape, *a, **k)
+        saved.append((name, f))
+        setattr(threefry, name, counted)
+    try:
+        yield counts
+    finally:
+        for name, f in saved:
+            setattr(threefry, name, f)
+    print(f"{what}: plain Threefry passes on the card {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"{what}: Threefry draws on the card ran the plain version {counts}")
+
+
+def threefry_bits_shapes(shape, dev, label, seed=2 ** 34 + 19):
+    """A time_kernels entry for K7's raw-words mode at `shape`, with its
+    bound: the words written once against one hash a word."""
+    from heongpu_tpu_torch.utils import threefry
+    key = threefry.key_from_seed(seed)
+    words = int(np.prod(shape))
+    return {f"threefry_bits {label}": (
+        lambda: threefry.bits32_cuda(key, shape, dev),
+        lambda: threefry.bits32_plain(key, shape, dev), f"{tuple(shape)} words",
+        bound(words * 4, words * THREEFRY_WORD_OPS, words * THREEFRY_WORD_ALU_OPS))}
+
+
+def joint_secret(ring, sks):
+    """The oracle joint key Σ s_i (coefficients and NTT + Montgomery form
+    add limb by limb), as tests/test_mpc.py builds it for the noise budget."""
+    import torch
+    from heongpu_tpu_torch.models import ringkit
+    from heongpu_tpu_torch.ops import modmath as mm
+    p = ring.base_qp.col()
+    s = sks[0].s_ntt_mont_qp
+    for sk in sks[1:]:
+        s = mm.add_mod(s, sk.s_ntt_mont_qp, p)
+    return ringkit.SecretKey(sum(sk.s_coeff.long() for sk in sks).to(torch.int32), s, 0)
+
+
+def mpc_bfv_run(ctx, step, seed=MPC_SEED):
+    """Three parties on a BFV context: their keys, the collective public key,
+    the 2-round relin key, a collective Galois key for rotate_rows by 1;
+    encrypt -> multiply -> relinearize -> rotate_rows by 1; threshold
+    decryption; collective bootstrapping and threshold decryption again;
+    Shamir 3 of 5 over the joint key and decryption by MPC_GROUP.  Every step
+    through `step` (mpc_stepper).  Returns {name: value} of every result."""
+    from heongpu_tpu_torch.models import bfv, mpc, ringkit
+    from heongpu_tpu_torch.ops import modmath as mm
+    from heongpu_tpu_torch.ops import polyops
+    from heongpu_tpu_torch.utils import rng
+    key = lambda s: rng.new_key(s, ctx.device)
+    ring, n, t = bfv._ring(ctx), ctx.n, ctx.t
+    parties = range(MPC_PARTIES)
+    o = {"sks": [step("keygen_secret", ringkit.keygen_secret, ring, key(seed + i))
+                 for i in parties]}
+    o["a"] = step("crs_uniform", mpc.crs_uniform, ring, MPC_CRS, (n,))
+    o["pk_shares"] = [step("pk_share", mpc.pk_share, ring, sk, o["a"], key(seed + 10 + i))
+                      for i, sk in enumerate(o["sks"])]
+    o["pk"] = step("pk_assemble", mpc.pk_assemble, ring, o["pk_shares"], o["a"])
+    o["a_d"] = step("relin_crs", mpc.relin_crs, ring, MPC_CRS + 1)
+    o["round1"] = [step("relin_round1", mpc.relin_round1, ring, sk, o["a_d"], key(seed + 20 + i))
+                   for i, sk in enumerate(o["sks"])]
+    p = ring.base_qp.col()
+    d0, d1 = o["round1"][0][0]
+    for (e0, e1), _ in o["round1"][1:]:
+        d0, d1 = mm.add_mod(d0, e0, p), mm.add_mod(d1, e1, p)
+    o["round2"] = [step("relin_round2", mpc.relin_round2, ring, sk, eph, d0, d1,
+                        key(seed + 30 + i))
+                   for i, (sk, (_, eph)) in enumerate(zip(o["sks"], o["round1"]))]
+    o["rk"] = step("relin_assemble", mpc.relin_assemble, ring, [s for s, _ in o["round1"]],
+                   o["round2"])
+    g = polyops.steps_to_galois_elt(1, n)
+    o["a_g"] = step("relin_crs", mpc.relin_crs, ring, MPC_CRS + 2)
+    o["galois_shares"] = [step("galois_share", mpc.galois_share, ring, sk, g, o["a_g"],
+                               key(seed + 40 + i)) for i, sk in enumerate(o["sks"])]
+    o["gk"] = ringkit.GaloisKey({g: step("galois_assemble", mpc.galois_assemble, ring, g,
+                                         o["galois_shares"], o["a_g"])})
+    r = np.random.default_rng(seed)
+    o["m1"], o["m2"] = r.integers(0, t, n), r.integers(0, t, n)
+    o["c1"] = step("encrypt", bfv.encrypt, ctx, o["pk"], bfv.encode(ctx, o["m1"]), key(seed + 50))
+    o["c2"] = step("encrypt", bfv.encrypt, ctx, o["pk"], bfv.encode(ctx, o["m2"]), key(seed + 51))
+    o["prod"] = step("mult_relin", lambda: bfv.relinearize(ctx, bfv.multiply(ctx, o["c1"], o["c2"]),
+                                                           o["rk"]))
+    o["rot"] = step("rotate_rows", bfv.rotate_rows, ctx, o["prod"], o["gk"], 1)
+    half = n // 2
+    w = o["m1"] * o["m2"] % t
+    o["want"] = np.concatenate([np.roll(w[:half], -1), np.roll(w[half:], -1)])
+    o["partials"] = [step("bfv_decrypt_partial", mpc.bfv_decrypt_partial, ctx, sk, o["rot"],
+                          key(seed + 60 + i)) for i, sk in enumerate(o["sks"])]
+    o["fused"] = step("bfv_decrypt_fuse", mpc.bfv_decrypt_fuse, ctx, o["rot"], o["partials"])
+    o["boot"] = [step("bfv_colboot_participant", mpc.bfv_colboot_participant, ctx, sk, o["rot"],
+                      MPC_CRS + 3, key(seed + 70 + i)) for i, sk in enumerate(o["sks"])]
+    o["fresh"] = step("bfv_colboot_coordinator", mpc.bfv_colboot_coordinator, ctx, o["rot"],
+                      o["boot"], MPC_CRS + 3)
+    o["fresh_partials"] = [step("bfv_decrypt_partial", mpc.bfv_decrypt_partial, ctx, sk,
+                                o["fresh"], key(seed + 80 + i)) for i, sk in enumerate(o["sks"])]
+    o["fresh_fused"] = step("bfv_decrypt_fuse", mpc.bfv_decrypt_fuse, ctx, o["fresh"],
+                            o["fresh_partials"])
+    o["joint"] = joint_secret(ring, o["sks"])
+    o["shamir"] = step("shamir_share_secret", mpc.shamir_share_secret, ctx, key(seed + 90),
+                       o["joint"], 5, 3, threshold=3)
+    o["t_partials"] = [step("bfv_decrypt_partial_threshold", mpc.bfv_decrypt_partial_threshold,
+                            ctx, o["shamir"][i - 1], o["rot"], MPC_GROUP, key(seed + 100 + i))
+                       for i in MPC_GROUP]
+    o["t_fused"] = step("bfv_decrypt_fuse", mpc.bfv_decrypt_fuse, ctx, o["rot"], o["t_partials"])
+    return o
+
+
+def mpc_ckks_run(ctx, step, pt=None, seed=MPC_SEED + 1000):
+    """Three parties on a CKKS context: their keys, the collective public and
+    relin keys; encrypt -> multiply -> relinearize -> rescale; threshold
+    decryption at level 1; collective bootstrapping to level 0 and threshold
+    decryption; Shamir 2 of 3 over the joint key and decryption by
+    MPC_CKKS_GROUP.  `pt`: the plaintext of z to encrypt (default: encoded on
+    ctx's device).  Returns {name: value} of every result."""
+    from heongpu_tpu_torch.models import ckks, mpc, ringkit
+    from heongpu_tpu_torch.ops import modmath as mm
+    from heongpu_tpu_torch.utils import rng
+    key = lambda s: rng.new_key(s, ctx.device)
+    ring, n = ckks._ring(ctx), ctx.n
+    o = {"sks": [step("keygen_secret", ringkit.keygen_secret, ring, key(seed + i))
+                 for i in range(MPC_PARTIES)]}
+    o["a"] = step("crs_uniform", mpc.crs_uniform, ring, MPC_CRS + 4, (n,))
+    o["pk_shares"] = [step("pk_share", mpc.pk_share, ring, sk, o["a"], key(seed + 10 + i))
+                      for i, sk in enumerate(o["sks"])]
+    o["pk"] = step("pk_assemble", mpc.pk_assemble, ring, o["pk_shares"], o["a"])
+    o["a_d"] = step("relin_crs", mpc.relin_crs, ring, MPC_CRS + 5)
+    o["round1"] = [step("relin_round1", mpc.relin_round1, ring, sk, o["a_d"], key(seed + 20 + i))
+                   for i, sk in enumerate(o["sks"])]
+    p = ring.base_qp.col()
+    d0, d1 = o["round1"][0][0]
+    for (e0, e1), _ in o["round1"][1:]:
+        d0, d1 = mm.add_mod(d0, e0, p), mm.add_mod(d1, e1, p)
+    o["round2"] = [step("relin_round2", mpc.relin_round2, ring, sk, eph, d0, d1,
+                        key(seed + 30 + i))
+                   for i, (sk, (_, eph)) in enumerate(zip(o["sks"], o["round1"]))]
+    o["rk"] = step("relin_assemble", mpc.relin_assemble, ring, [s for s, _ in o["round1"]],
+                   o["round2"])
+    o["z"] = np.random.default_rng(seed).uniform(-1, 1, n // 2)
+    o["want"] = o["z"] ** 2
+    o["ct"] = step("encrypt", ckks.encrypt, ctx, o["pk"],
+                   ckks.encode(ctx, o["z"]) if pt is None else pt, key(seed + 50))
+    o["prod"] = step("mult_relin_rescale", lambda: ckks.rescale(ctx, ckks.relinearize(
+        ctx, ckks.multiply(ctx, o["ct"], o["ct"]), o["rk"])))
+    o["partials"] = [step("ckks_decrypt_partial", mpc.ckks_decrypt_partial, ctx, sk, o["prod"],
+                          key(seed + 60 + i)) for i, sk in enumerate(o["sks"])]
+    o["fused"] = step("ckks_decrypt_fuse", mpc.ckks_decrypt_fuse, ctx, o["prod"], o["partials"])
+    o["boot"] = [step("ckks_colboot_participant", mpc.ckks_colboot_participant, ctx, sk,
+                      o["prod"], MPC_CRS + 6, key(seed + 70 + i))
+                 for i, sk in enumerate(o["sks"])]
+    o["fresh"] = step("ckks_colboot_coordinator", mpc.ckks_colboot_coordinator, ctx, o["prod"],
+                      o["boot"], MPC_CRS + 6)
+    o["fresh_partials"] = [step("ckks_decrypt_partial", mpc.ckks_decrypt_partial, ctx, sk,
+                                o["fresh"], key(seed + 80 + i)) for i, sk in enumerate(o["sks"])]
+    o["fresh_fused"] = step("ckks_decrypt_fuse", mpc.ckks_decrypt_fuse, ctx, o["fresh"],
+                            o["fresh_partials"])
+    o["joint"] = joint_secret(ring, o["sks"])
+    o["shamir"] = step("shamir_share_secret", mpc.shamir_share_secret, ctx, key(seed + 90),
+                       o["joint"], 3, 2, threshold=2)
+    o["t_partials"] = [step("ckks_decrypt_partial_threshold", mpc.ckks_decrypt_partial_threshold,
+                            ctx, o["shamir"][i - 1], o["fresh"], MPC_CKKS_GROUP,
+                            key(seed + 100 + i)) for i in MPC_CKKS_GROUP]
+    o["t_fused"] = step("ckks_decrypt_fuse", mpc.ckks_decrypt_fuse, ctx, o["fresh"],
+                        o["t_partials"])
+    return o
+
+
+def mpc_tensors(o, prefix):
+    """{name: tensor} of every residue tensor in an MPC run's results."""
+    import torch
+    out = {}
+
+    def walk(name, v):
+        if isinstance(v, torch.Tensor):
+            out[name] = v
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(f"{name}[{i}]", x)
+        elif isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{name}[{k}]", x)
+        elif hasattr(v, "keys") and not hasattr(v, "__dataclass_fields__"):
+            walk(name, v.keys)
+        elif hasattr(v, "__dataclass_fields__"):
+            for k in v.__dataclass_fields__:
+                walk(f"{name}.{k}", getattr(v, k))
+    for k, v in o.items():
+        walk(f"{prefix}{k}", v)
+    return out
+
+
+def mpc_draws(dev, step):
+    """The new Threefry draws at (2^16,) shapes, for the card-against-CPU
+    check: {name: tensor}."""
+    from heongpu_tpu_torch.utils import nt, rng
+    n = 1 << 16
+    key = rng.new_key(MPC_SEED + 999, dev)
+    primes = nt.generate_ntt_primes(29, 3, 4096)
+    return {"randint": step("randint", rng.randint, key, (n,), -(1 << 30), 1 << 30, dev),
+            "normal": step("normal", rng.normal, key, (n,), dev),
+            "permutation": step("permutation", rng.permutation, key, n, dev),
+            "gaussian_rns": step("gaussian_rns", rng.gaussian_rns, key, primes, (n,), dev),
+            "ternary_hw": step("ternary_hw", rng.ternary_hw, key, n, n // 2, dev),
+            "bits32_fold_in": step("bits32", rng.bits32, rng.fold_in(key, 5), (n,), dev)}
+
+
+def mpc_small(dev, n, record):
+    """Phase 18 (a)'s run on `dev`: both schemes' MPC runs at N=n and the
+    (2^16,) draws, K7's launches held to mpc_k7_predicted on the card.
+    Returns ({name: tensor}, the normal draw, {result: (decoded, wanted)})."""
+    from heongpu_tpu_torch.models import bfv, ckks
+    from heongpu_tpu_torch.utils import params
+    t = params.plain_modulus_for(n, MPC_SMALL_T_BITS)
+    step = mpc_stepper(n, record, check=card_device(dev))
+    bctx = bfv.make_context(n, t, q_bits=MPC_SMALL_BFV_Q_BITS, device=dev)
+    bo = mpc_bfv_run(bctx, step)
+    cctx = ckks.make_context(n, MPC_SMALL_CKKS_Q_BITS, device=dev)
+    # the plaintext from the CPU encoder on both sides: the float64 encoder may
+    # round differently on the card
+    z = np.random.default_rng(MPC_SEED + 1000).uniform(-1, 1, n // 2)
+    pt = ckks.encode(ckks.make_context(n, MPC_SMALL_CKKS_Q_BITS, device="cpu"), z)
+    co = mpc_ckks_run(cctx, step, pt=ckks.Plaintext(pt.m.to(dev), pt.level, pt.scale))
+    out = mpc_tensors(bo, "bfv ")
+    out.update(mpc_tensors(co, "ckks "))
+    draws = mpc_draws(dev, mpc_stepper(1 << 16, record, check=card_device(dev)))
+    normal = draws.pop("normal")
+    out.update(draws)
+    dec = {f"bfv {k}": (bfv.decode(bctx, bo[k]), bo["want"])
+           for k in ("fused", "fresh_fused", "t_fused")}
+    dec.update({f"ckks {k}": (ckks.decode(cctx, co[k]).real, co["want"])
+                for k in ("fused", "fresh_fused", "t_fused")})
+    return out, normal, dec
+
+
+def mpc_check(what, dec, card):
+    """Prints each decryption's exactness (BFV) or max error (CKKS) and
+    raises unless BFV is exact and CKKS within MPC_TOL.  Returns the
+    CKKS errors."""
+    exact = {k: bool(np.array_equal(got, want)) for k, (got, want) in dec.items()
+             if k.startswith("bfv")}
+    errs_ = {k: float(np.abs(got - want).max()) for k, (got, want) in dec.items()
+             if k.startswith("ckks")}
+    print(f"{what}: BFV exact {exact}; CKKS max error {errs_} (limit {MPC_TOL}) [{card}]")
+    if not all(exact.values()) or not all(e <= MPC_TOL for e in errs_.values()):
+        raise AssertionError(f"MPC {what}: a threshold decryption is wrong: {exact} {errs_}")
+    return errs_
+
+
+def mpc_full(scheme, ctx, card, errs):
+    """Phase 18 (b) or (c): the MPC run on a full-width context, launches
+    counted from 0, every launch at a new shape held against plain, K6 once
+    per ÷P site, no plain Threefry pass on the card, K7 per step as
+    predicted; decryptions checked; the oracle joint key's noise budget
+    (BFV); ms per protocol step (median of 3), device busy and idle share of
+    a threshold decryption and of a collective bootstrap, the collective
+    keys' bytes, K7's raw-words mode timed at the run's widest draw and at
+    one row.  Returns (launches; record; K7's timings)."""
+    import torch
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import bfv, ckks, mpc
+    from heongpu_tpu_torch.utils import rng
+    what = f"MPC {scheme.upper()} N={ctx.n}"
+    run = mpc_bfv_run if scheme == "bfv" else mpc_ckks_run
+    steps, calls = {}, {}
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with held_against_plain(what, errs), div_round_sites(what), plain_threefry_on_card(what):
+        o = run(ctx, mpc_stepper(ctx.n, steps, calls=calls))
+        if scheme == "bfv":
+            dec = {f"bfv {k}": (bfv.decode(ctx, o[k]), o["want"])
+                   for k in ("fused", "fresh_fused", "t_fused")}
+            nb = (bfv.noise_budget(ctx, o["joint"], o["rot"]),
+                  bfv.noise_budget(ctx, o["joint"], o["fresh"]))
+        else:
+            dec = {f"ckks {k}": (ckks.decode(ctx, o[k]).real, o["want"])
+                   for k in ("fused", "fresh_fused", "t_fused")}
+            nb = None
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    run_s = time.perf_counter() - t1
+    key_bytes = {"public": nbytes(o["pk"].pk0, o["pk"].pk1),
+                 "relin": nbytes(o["rk"].k0, o["rk"].k1)}
+    if scheme == "bfv":
+        key_bytes["galois"] = sum(nbytes(k.k0, k.k1) for k in o["gk"].keys.values())
+    print(f"{what}: {MPC_PARTIES} parties in {run_s:.1f} s, launches {launches}; K7 (uniform, "
+          f"words) per step as predicted: " + ", ".join(
+              f"{k} {(v.get('threefry_uniform', 0), v.get('threefry_bits', 0))}"
+              for k, v in steps.items()) + f"; collective key bytes {key_bytes}")
+    cerrs = mpc_check(what, dec, card)
+    if nb is not None:
+        print(f"{what}: noise budget under the joint key Σ s_i before / after the collective "
+              f"bootstrap {nb[0]:.3f} / {nb[1]:.3f} bits [{card}]")
+        if not nb[1] > nb[0]:
+            raise AssertionError(f"{what}: the collective bootstrap left the budget at {nb}")
+    require_launched(what, launches, ("ntt_fwd", "ntt_inv", "mac_keys", "div_round",
+                                      "threefry_uniform", "threefry_bits"))
+    if scheme == "ckks":      # the coordinator's exact CRT alone
+        ct = o["prod"]
+        calls["crt_relift"] = lambda: mpc.crt_relift(
+            ct.c[0], ctx.q_primes[:ctx.active(ct.level)], ctx.q_primes)
+    ms = {k: median_ms(fn, reps=3, warm=1) for k, fn in calls.items()}
+    print(f"time {what}, ms per protocol step (median of 3): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]")
+    sks = o["sks"]
+    key = rng.new_key(MPC_SEED + 4343, ctx.device)
+    if scheme == "bfv":
+        decrypt_all = lambda: mpc.bfv_decrypt_fuse(ctx, o["rot"], [
+            mpc.bfv_decrypt_partial(ctx, sk, o["rot"], key) for sk in sks])
+        boot_all = lambda: mpc.bfv_colboot_coordinator(ctx, o["rot"], [
+            mpc.bfv_colboot_participant(ctx, sk, o["rot"], MPC_CRS + 3, key) for sk in sks],
+            MPC_CRS + 3)
+    else:
+        decrypt_all = lambda: mpc.ckks_decrypt_fuse(ctx, o["prod"], [
+            mpc.ckks_decrypt_partial(ctx, sk, o["prod"], key) for sk in sks])
+        boot_all = lambda: mpc.ckks_colboot_coordinator(ctx, o["prod"], [
+            mpc.ckks_colboot_participant(ctx, sk, o["prod"], MPC_CRS + 6, key) for sk in sks],
+            MPC_CRS + 6)
+    prof = {}
+    print_profile(f"{what} threshold decryption (3 partials + fuse)", decrypt_all, 3, card, prof,
+                  "threshold_decrypt")
+    print_profile(f"{what} collective bootstrap (3 participants + coordinator)", boot_all, 3,
+                  card, prof, "colboot")
+    k = ctx.k
+    kern = time_kernels({**threefry_bits_shapes((k, ctx.n), ctx.device, f"{scheme} ({k}, N)"),
+                         **threefry_bits_shapes((ctx.n,), ctx.device, f"{scheme} (N,)")},
+                        f"MPC {scheme.upper()}'s", ctx.n, card, errs)
+    rec = {"launches": launches, "step_launches": steps, "key_bytes": key_bytes, "ms": ms,
+           "max_err": cerrs, "noise_budget": nb, "profile": prof, "kernels": kern,
+           "seconds": run_s}
+    return launches, rec, kern
+
+
+def mpc_phases(dev, card, errs, n_small=256, n_bfv=BFV_N, n_ckks=N):
+    """Phase 18: MPC, three parties, every key, share and mask from Threefry
+    keys.  (a) n_small: every MPC entry point of both schemes (BFV on
+    tests/test_mpc.py's [29]*3 chain, CKKS on its [29, 25, 25, 25], t-of-N 3
+    of 5 and 2 of 3) and the new draws at (2^16,) shapes on the card, against
+    the CPU plain path: identical residues, normal within 1e-6, decryptions
+    exact / within MPC_TOL; (b) BFV on phase 15's default chain at n_bfv;
+    (c) CKKS Method I on phase 16's shape at n_ckks (mpc_full).  Launches
+    counted from 0 in each, K7's per step as mpc_k7_predicted says, no plain
+    Threefry pass on the card, K6 once per ÷P site.  Returns (the launches of
+    (a)-(c), summed; record; K7's raw-words timings)."""
+    import torch
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import bfv, ckks
+    from heongpu_tpu_torch.utils import params
+    rec = {}
+
+    # -- 18. (a) card against CPU at n_small ---------------------------------------------
+    t0 = time.perf_counter()
+    cpu_out, cpu_normal, cpu_dec = mpc_small("cpu", n_small, {})
+    steps_a = {}
+    kernels.reset_launches()
+    what = f"MPC N={n_small}"
+    with held_against_plain(what, errs), div_round_sites(what), plain_threefry_on_card(what):
+        out, normal, dec = mpc_small(dev, n_small, steps_a)
+        torch.cuda.synchronize()
+        launches_a = dict(kernels.launches)
+    diff = [k for k in out if not torch.equal(out[k].cpu(), cpu_out[k])]
+    normal = normal.cpu()
+    normal_err = float((normal - cpu_normal).abs().max())
+    normal_same = int((normal == cpu_normal).sum())
+    print(f"MPC (a) N={n_small}: {len(out)} residue tensors of every MPC entry point (BFV and "
+          f"CKKS, 3 parties, 3 of 5 and 2 of 3) and the (2^16,) draws on the card identical to "
+          f"the CPU plain path's: {not diff} {diff[:8] or ''}; normal (2^16,) max |card - CPU| "
+          f"{normal_err:.3e}, {normal_same} of {normal.numel()} words equal; launches "
+          f"{launches_a}; {time.perf_counter() - t0:.1f} s")
+    mpc_check(f"MPC (a) N={n_small} card", dec, card)
+    mpc_check(f"MPC (a) N={n_small} CPU", cpu_dec, card)
+    if diff or normal_err > 1e-6:
+        raise AssertionError(f"MPC (a): card and CPU differ: {diff[:8]}, normal {normal_err}")
+    require_launched(what, launches_a, ("threefry_uniform", "threefry_bits"))
+    rec[f"n{n_small}"] = {"identical_to_cpu": True, "tensors": len(out),
+                          "normal_max_abs_diff": normal_err, "normal_equal_words": normal_same,
+                          "launches": launches_a, "step_launches": steps_a,
+                          "seconds": time.perf_counter() - t0}
+
+    # -- 18. (b) BFV at n_bfv on phase 15's default chain ---------------------------------
+    ctx = bfv.make_context(n_bfv, params.plain_modulus_for(n_bfv, BFV_T_BITS), device=dev)
+    launches_b, rec["bfv"], kern_b = mpc_full("bfv", ctx, card, errs)
+    del ctx
+    # -- 18. (c) CKKS Method I at n_ckks on phase 16's shape ---------------------------------
+    ctx = ckks.make_context(n_ckks, Q_BITS, device=dev)
+    launches_c, rec["ckks"], kern_c = mpc_full("ckks", ctx, card, errs)
+    del ctx
+    torch.cuda.empty_cache()
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
+    return launches, rec, {**kern_b, **kern_c}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2571,6 +3083,13 @@ def run(dev) -> int:
         raise AssertionError(f"no ptxas line for K7: {k7_ptxas}")
     if k7_ptxas:
         ptxas["threefry_uniform"] = k7_ptxas[0]
+    k7w_ptxas = list(ptxas_summary(log, "threefry_bits_kernel").values())
+    for line in k7w_ptxas:
+        print(f"ptxas threefry.cu threefry_bits: {line}")
+    if log and len(k7w_ptxas) != 1:
+        raise AssertionError(f"no ptxas line for K7's raw-words mode: {k7w_ptxas}")
+    if k7w_ptxas:
+        ptxas["threefry_bits"] = k7w_ptxas[0]
     # K7's bound takes 2 x 20 funnel shifts and 2 x 21 xors a word as ALU-only work:
     # the compiled kernel must hold at least those (it runs straight through a word)
     k7_sass = sass_mix(path, "threefry_uniform_kernel")
@@ -2586,6 +3105,7 @@ def run(dev) -> int:
                              f"{shf} SHF.L.W, {lop3} LOP3.LUT")
     spills = [k for k, line in list(ks_ptxas.items()) + list(ntt_ptxas.items())
               + list(k2k6_ptxas.items()) + [("threefry_uniform", ln) for ln in k7_ptxas]
+              + [("threefry_bits", ln) for ln in k7w_ptxas]
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
         raise AssertionError(f"K1, K2, K5, K6 or K7 instances spill: {spills}")
@@ -2726,9 +3246,15 @@ def run(dev) -> int:
                     threefry.uniform_rns_plain(key, primes, shape, dev, moved, True))
         errs["threefry_uniform"] = max(errs["threefry_uniform"], e)
         print(f"K7 threefry_uniform ({len(primes)} limbs, {shape}, moved={moved}): err={e}")
+    # K7's raw-words mode: an odd count (a partial last block), a multi-axis draw, 2^22 words
+    for shape in ((5,), (3, 7, 1000), (1 << 22,)):
+        key = threefry.key_from_seed(2 ** 43 + len(shape))
+        e = max_err(threefry.bits32_cuda(key, shape, dev), threefry.bits32_plain(key, shape, dev))
+        errs["threefry_bits"] = max(errs["threefry_bits"], e)
+        print(f"K7 threefry_bits {shape}: err={e}")
     torch.cuda.synchronize()
     if any(errs[k] for k in ("mac_keys", "base_conv", "div_round", "div_exact_t",
-                             "threefry_uniform")):
+                             "threefry_uniform", "threefry_bits")):
         raise AssertionError("K2, K6 or K7 disagrees with its plain version")
 
     small = ckks.make_context(1 << 12, Q_BITS, ks_type="II", alpha=ALPHA, device=dev)
@@ -2895,15 +3421,19 @@ def run(dev) -> int:
     m1_launches, m1_rec = ckks_method1_phase(dev, card, errs)
     # -- 17. BGV ------------------------------------------------------------------------
     bgv_launches, bgv_rec, bgv_kern = bgv_phases(dev, card, errs, gen)
-    # each kernel's launches on the nine paths, each run counted from 0 just before it
+    # -- 18. MPC ------------------------------------------------------------------------
+    mpc_launches, mpc_rec, mpc_kern = mpc_phases(dev, card, errs)
+    # each kernel's launches on the ten paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
                 + v2_launches[k] + bfv_launches[k] + m1_launches[k] + bgv_launches[k]
-                for k in launches}
-    # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's
+                + mpc_launches[k] for k in launches}
+    # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's, its
+    # raw-words mode at MPC BFV's widest draw (a relin round's gaussian, (29, 2^15))
     k7_kern = boot_rec["compressed"]["kernels"]
     for name, r in (("div_exact_t", bgv_kern["div_exact_t keyswitch"]),
-                    ("threefry_uniform", next(iter(k7_kern.values())))):
+                    ("threefry_uniform", next(iter(k7_kern.values()))),
+                    ("threefry_bits", next(iter(mpc_kern.values())))):
         times[name], bounds[name] = (r["ms"], r["plain_ms"]), (r["bound_ms"], r["bound_by"])
     times.update(tfhe_times)
     bounds.update(tfhe_bounds)
@@ -2926,6 +3456,8 @@ def run(dev) -> int:
                                "heongpu_tpu/models/bgv.py:54"),
                "threefry_uniform": ("heongpu_tpu_torch/kernels/csrc/threefry.cu",
                                     "heongpu_tpu/utils/rng.py:127"),
+               "threefry_bits": ("heongpu_tpu_torch/kernels/csrc/threefry.cu",
+                                 "heongpu_tpu/utils/rng.py:84"),
                "keyswitch2_fused": ("heongpu_tpu_torch/kernels/csrc/keyswitch.cu",
                                     "heongpu_tpu/ops/keyswitch_pallas.py:148")}
     kernels_rec = [
@@ -2946,13 +3478,14 @@ def run(dev) -> int:
     k_shapes = {f"{phase}: {lbl}": (lbl.split()[0], r)
                 for phase, recs in (("main", k2k6), ("bootstrap", boot_full["kernels"]),
                                     ("bfv", bfv_default["kernels"]), ("bgv", bgv_kern),
-                                    ("compressed bootstrap", k7_kern))
+                                    ("compressed bootstrap", k7_kern), ("mpc", mpc_kern))
                 for lbl, r in recs.items()}
     main_label = {"mac_keys": ("main", "mac_keys"),
                   "base_conv": ("main", "base_conv 4->16 B=1 scaled"),
                   "div_round": ("main", "div_round keyswitch"),
                   "div_exact_t": ("bgv", "div_exact_t keyswitch"),
-                  "threefry_uniform": ("compressed bootstrap", next(iter(k7_kern)))}
+                  "threefry_uniform": ("compressed bootstrap", next(iter(k7_kern))),
+                  "threefry_bits": ("mpc", next(iter(mpc_kern)))}
     for k in kernels_rec:
         if k["name"] in main_label:
             k.update(device_ms=k_shapes[": ".join(main_label[k["name"]])][1]["device_ms"],
@@ -2977,6 +3510,7 @@ def run(dev) -> int:
               "bfv_launches": bfv_launches, "bfv": bfv_rec,
               "ckks_method1_launches": m1_launches, "ckks_method1": m1_rec,
               "bgv_launches": bgv_launches, "bgv": bgv_rec,
+              "mpc_launches": mpc_launches, "mpc": mpc_rec,
               "div_round_runs": DIV_ROUND_RUNS}
     busy = {"CKKS mult+relin (Method II)": ckks_prof,
             "CKKS mult+relin, Method I": m1_rec["profile"],
@@ -2990,7 +3524,15 @@ def run(dev) -> int:
         f"{fmt_ms(boot_z['profile']['bootstrap_busy_ms'])} / "
         f"{fmt_ms(boot_z['profile']['bootstrap_idle_share'])}; regular v2 "
         f"{fmt_ms(v2_full['regular']['profile']['run_busy_ms'])} / "
-        f"{fmt_ms(v2_full['regular']['profile']['run_idle_share'])} [{card}]")
+        f"{fmt_ms(v2_full['regular']['profile']['run_idle_share'])}; MPC threshold decryption "
+        f"BFV {fmt_ms(mpc_rec['bfv']['profile']['threshold_decrypt_busy_ms'])} / "
+        f"{fmt_ms(mpc_rec['bfv']['profile']['threshold_decrypt_idle_share'])}, CKKS "
+        f"{fmt_ms(mpc_rec['ckks']['profile']['threshold_decrypt_busy_ms'])} / "
+        f"{fmt_ms(mpc_rec['ckks']['profile']['threshold_decrypt_idle_share'])}; collective "
+        f"bootstrap BFV {fmt_ms(mpc_rec['bfv']['profile']['colboot_busy_ms'])} / "
+        f"{fmt_ms(mpc_rec['bfv']['profile']['colboot_idle_share'])}, CKKS "
+        f"{fmt_ms(mpc_rec['ckks']['profile']['colboot_busy_ms'])} / "
+        f"{fmt_ms(mpc_rec['ckks']['profile']['colboot_idle_share'])} [{card}]")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

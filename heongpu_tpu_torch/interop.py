@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import bfv, bgv, ckks, ckks_boot, ckks_boot_ext, ringkit, tfhe, tfhe_int
+from .models import bfv, bgv, ckks, ckks_boot, ckks_boot_ext, mpc, ringkit, tfhe, tfhe_int
 from .ops import modmath as mm
 
 
@@ -101,6 +101,16 @@ def bgv_ciphertext_from_numpy(c, size: int, level: int, factor: int, device="cud
 def bfv_plaintext_from_numpy(m, device="cuda"):
     """A BFV plaintext poly (n,) mod t."""
     return _t(m, device)
+
+
+def threshold_share_from_numpy(index: int, threshold: int, s_ntt_mont_qp, device="cuda"):
+    """The reference's mpc.ThresholdShare (party `index`'s Shamir share)."""
+    return mpc.ThresholdShare(int(index), int(threshold), _t(s_ntt_mont_qp, device))
+
+
+def relin_ephemeral_from_numpy(u_mont, device="cuda"):
+    """The reference's mpc.RelinEphemeral (a party's round-1 secret)."""
+    return mpc.RelinEphemeral(_t(u_mont, device))
 
 
 def tfhe_secret_key_from_numpy(lwe, rlwe, device="cuda"):

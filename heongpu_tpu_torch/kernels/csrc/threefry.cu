@@ -20,6 +20,14 @@
 // 2^32 mod p, its Shoup companion) is read through the read-only cache.
 //
 // Bound: integer operations (about 160 a word against 4 bytes written).
+//
+// Raw-words mode (hf_threefry_bits): the words of jax.random.bits(key, shape, uint32)
+// themselves, one hash per word and no reduction, in the draw's own row-major order.
+// It replaces the XLA-fused bits draw under heongpu_tpu/utils/rng.py::bits32
+// (rng.py:84) on a Threefry key, which every other Threefry draw of the JAX package
+// starts from: randint's two bit draws, normal's and permutation's sort keys (their
+// integer and float transforms stay torch passes).  One thread per word; bound by
+// integer operations (about 73 a word against 4 bytes written).
 
 #include "ntt_common.cuh"
 
@@ -99,8 +107,20 @@ __global__ void __launch_bounds__(kThreads) threefry_uniform_kernel(const DrawPa
   A.out[o] = v;
 }
 
+__global__ void __launch_bounds__(kThreads) threefry_bits_kernel(u32* out, u32 k0, u32 k1,
+                                                                 u32 count) {
+  const u32 c = blockIdx.x * kThreads + threadIdx.x;
+  if (c < count) out[c] = threefry_bits(k0, k1, c);
+}
+
 int launch_threefry(const DrawParams& A, unsigned blocks, cudaStream_t stream) {
   threefry_uniform_kernel<<<blocks, kThreads, 0, stream>>>(A);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_threefry_bits(u32* out, u32 k0, u32 k1, u32 count, unsigned blocks,
+                         cudaStream_t stream) {
+  threefry_bits_kernel<<<blocks, kThreads, 0, stream>>>(out, k0, k1, count);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -121,4 +141,14 @@ extern "C" int hf_threefry_uniform(void* out, const void* tab, unsigned hi0, uns
                      lo1, L, d, n, moved, mont};
   return launch_threefry(A, static_cast<unsigned>((total + kThreads - 1) / kThreads),
                          static_cast<cudaStream_t>(stream));
+}
+
+// out[c] = the word c of jax.random.bits((k0, k1), shape, uint32) for c < count (the
+// draw's elements in row-major order).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an empty draw or one of 2^31 words or more.
+extern "C" int hf_threefry_bits(void* out, unsigned k0, unsigned k1, int count, void* stream) {
+  if (count <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_threefry_bits(static_cast<u32*>(out), k0, k1, static_cast<u32>(count),
+                              (static_cast<unsigned>(count) + kThreads - 1) / kThreads,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -369,7 +369,13 @@ def _ct_dot_sk(ctx: BfvContext, ct: Ciphertext, sk: SecretKey):
 
 def decrypt(ctx: BfvContext, sk: SecretKey, ct: Ciphertext) -> torch.Tensor:
     """Plaintext poly (n,) mod t by the {t, γ} scaled remainder."""
-    y = _ct_dot_sk(ctx, ct, sk)
+    return decrypt_phase(ctx, _ct_dot_sk(ctx, ct, sk))
+
+
+def decrypt_phase(ctx: BfvContext, y) -> torch.Tensor:
+    """round(t·y/Q) mod t of a phase y = c0 + c1·s (+ c2·s^2) mod Q, (k, n)
+    in the coefficient domain, by the {t, γ} scaled remainder: decryption's
+    last step, which MPC's fuse runs on c0 plus the parties' shares."""
     qb = ctx.base_q
     p = qb.col()
     z = mm.add_mod(mm.mont_mul(y, _col(ctx.gt_qhatinv_mont), p, qb.col("rinv")),

@@ -4,11 +4,14 @@
 Three sources behind one facade; every sampler takes any of them as `key`:
 
   * a `ThreefryKey` (`new_key(seed)`): the reference's JAX Threefry key,
-    bit for bit (utils/threefry.py).  `split`, `bits32` and `uniform_rns`
-    take it, and a uniform draw on the card is one K7 launch; this is the
-    source of seed-expanded keys (`a_seed`).  Its gaussian, ternary and
-    shuffle draws (jax.random's float and permutation algorithms) and
-    `fold_in` are not ported and raise errors.ParameterError;
+    bit for bit (utils/threefry.py): every draw of this facade gives the
+    reference's numbers from it (`normal` within float32 rounding, and the
+    gaussian integers of `gaussian_rns` equal).  On the card a uniform RNS
+    draw is one K7 launch in its uniform mode, and every other draw starts
+    from K7's raw-words mode (`bits32` one launch, `normal` one, `randint`
+    two, `permutation` one a sort round); the integer and float transforms
+    after the words are torch passes.  It is the source of seed-expanded
+    keys (`a_seed`) and of MPC's common reference strings;
 
   * a `CtrDrbg` (utils/drbg.py, NIST SP 800-90A AES-CTR): bytes drawn on the
     host in the reference's order and transformed as the reference does, so
@@ -36,7 +39,7 @@ import torch
 
 from ..ops import modmath as mm
 from . import drbg as _drbg
-from . import errors, threefry
+from . import threefry
 
 ERROR_STD_DEV = 3.2  # sigma of the centered discrete gaussian
 GAUSS_TAIL = 6       # truncate at 6 sigma
@@ -61,13 +64,6 @@ def new_key(seed: int | None = None, device="cuda") -> ThreefryKey:
 
 def is_threefry(key) -> bool:
     return isinstance(key, ThreefryKey)
-
-
-def _no_threefry(key, what: str):
-    if is_threefry(key):
-        raise errors.ParameterError(
-            f"{what} on a Threefry key (jax.random's algorithm for it) is not ported; "
-            "draw from a DRBG or a torch.Generator")
 
 
 def new_generator(seed: int, device="cuda") -> torch.Generator:
@@ -97,11 +93,13 @@ def split(key, num: int = 2):
 
 
 def fold_in(key, data: int):
-    """A sub-source for `data`.  A DRBG passes through unchanged, as in the
+    """A sub-source for `data`.  A ThreefryKey folds `data` in as
+    jax.random.fold_in does.  A DRBG passes through unchanged, as in the
     reference, so a DRBG key set is drawn in the reference's order.  A
     torch.Generator gives a new generator on its device, seeded from a hash
     of its current state and `data`; the parent's state does not move."""
-    _no_threefry(key, "fold_in")
+    if is_threefry(key):
+        return ThreefryKey(threefry.fold_in_np(key.words, data), key.device)
     if is_drbg(key):
         return key
     state = key.get_state().cpu().numpy().tobytes()
@@ -128,14 +126,15 @@ def bits32(key, shape, device) -> torch.Tensor:
         w = key.bits32(_numel(shape)).astype(np.int64).reshape(shape)
         return torch.from_numpy(w).to(device)
     if is_threefry(key):
-        return threefry.bits32(key.words, shape, _gen_device(key, device))
+        return mm.as_u32(threefry.bits32(key.words, shape, _gen_device(key, device)))
     return torch.randint(0, 1 << 32, tuple(shape), generator=key,
                          device=_gen_device(key, device), dtype=mm.I64)
 
 
 def randint(key, shape, lo: int, hi: int, device) -> torch.Tensor:
     """Uniform integers in [lo, hi) as int32."""
-    _no_threefry(key, "randint")
+    if is_threefry(key):
+        return threefry.randint(key.words, shape, lo, hi, _gen_device(key, device))
     if is_drbg(key):
         u = key.bits64(_numel(shape))
         v = (lo + (u % (hi - lo))).astype(np.int64).reshape(shape)
@@ -146,7 +145,8 @@ def randint(key, shape, lo: int, hi: int, device) -> torch.Tensor:
 
 def normal(key, shape, device) -> torch.Tensor:
     """Standard normal draws as float32."""
-    _no_threefry(key, "normal")
+    if is_threefry(key):
+        return threefry.normal(key.words, shape, _gen_device(key, device))
     if is_drbg(key):
         n = _numel(shape)
         # Box-Muller over DRBG uniforms in (0, 1], float64 then float32
@@ -159,7 +159,8 @@ def normal(key, shape, device) -> torch.Tensor:
 
 
 def permutation(key, n: int, device) -> torch.Tensor:
-    _no_threefry(key, "permutation")
+    if is_threefry(key):
+        return threefry.permutation(key.words, n, _gen_device(key, device))
     if is_drbg(key):
         return torch.from_numpy(np.argsort(key.bits64(n)).astype(np.int64)).to(device)
     return torch.randperm(n, generator=key, device=_gen_device(key, device))

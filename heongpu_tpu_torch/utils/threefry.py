@@ -17,9 +17,18 @@ reproduces those bits without JAX:
   * `bits32(key, shape)`: Threefry of the row-major flat index of each element
     (its high and low words), the two output words XORed.
 
-Each comes as a numpy host version (`*_np`) and a plain int64 torch version;
-`uniform_rns_plain` is the plain version of K7's function and
-`uniform_rns_cuda` launches K7.
+  * `fold_in_np(key, data)`: Threefry of the counter words (0, data mod 2^32).
+  * `randint`, `normal` (float32, `uniform_f32` and `erf_inv`) and
+    `permutation`: jax.random's transforms of those words (below), each a
+    torch pass on the words' device.
+
+Each comes as a numpy host version (`*_np`) or a plain int64 torch version.
+K7 (kernels/csrc/threefry.cu) has two modes: `uniform_rns_cuda` launches its
+uniform mode (`uniform_rns_plain` is its plain version), `bits32_cuda` its
+raw-words mode (`bits32_plain`).  The dispatchers `bits32` and `uniform_rns`
+launch K7 for a CUDA device and run the plain version only on the CPU, so
+every Threefry draw on the card (the words of randint, normal and
+permutation too) is a K7 launch.
 """
 
 from __future__ import annotations
@@ -101,13 +110,174 @@ def split_torch(key, num: int, device) -> torch.Tensor:
     return torch.stack(hash_torch(key, i >> 32, i & MASK), dim=1)
 
 
-def bits32(key, shape, device) -> torch.Tensor:
-    """jax.random.bits(key, shape, uint32) as int64 values in [0, 2^32), by
-    plain int64 torch passes on `device`."""
-    count = int(np.prod(shape)) if len(shape) else 1
-    i = torch.arange(count, dtype=torch.int64, device=device)
+def _count(shape) -> int:
+    return int(np.prod(shape)) if len(shape) else 1
+
+
+def bits32_plain(key, shape, device) -> torch.Tensor:
+    """The plain version of K7's raw-words mode: the words of
+    jax.random.bits(key, shape, uint32) as an int32 tensor with their bits,
+    by int64 torch passes on `device`."""
+    i = torch.arange(_count(shape), dtype=torch.int64, device=device)
     y0, y1 = hash_torch(key, i >> 32, i & MASK)
-    return (y0 ^ y1).reshape(tuple(shape))
+    w = (y0 ^ y1).reshape(tuple(shape))
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def bits32_cuda(key, shape, device) -> torch.Tensor:
+    """Launch K7's raw-words mode: bits32_plain's words on the card, one
+    thread per word, an int32 tensor with their bits."""
+    from .. import kernels
+    count = _count(shape)
+    if count >= 1 << 31:
+        raise ValueError("K7 counts the words of one draw in 31 bits")
+    out = torch.empty(tuple(shape), dtype=torch.int32, device=_cuda_device(device))
+    if count == 0:
+        return out
+    err = kernels.library().hf_threefry_bits(out.data_ptr(), int(key[0]), int(key[1]), count,
+                                             kernels.stream_of(out))
+    kernels.check(err, "threefry_bits")
+    kernels.launches["threefry_bits"] += 1
+    return out
+
+
+def bits32(key, shape, device) -> torch.Tensor:
+    """jax.random.bits(key, shape, uint32) as int32 words: K7 on a CUDA
+    device, its plain version on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return bits32_cuda(key, shape, dev)
+    if dev.type != "cpu":
+        raise ValueError(f"no Threefry kernel for tensors on {dev}")
+    return bits32_plain(key, shape, dev)
+
+
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# jax.random's transforms of the words: fold_in, randint (int32), uniform
+# (float32), normal and permutation, as jax.random computes them under x64 off
+# ---------------------------------------------------------------------------
+
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def fold_in_np(key, data: int) -> tuple:
+    """jax.random.fold_in(key, data): Threefry of the counter words
+    (0, data mod 2^32), the two output words the new key."""
+    y0, y1 = hash_np(key, [0], [int(data) & MASK])
+    return int(y0[0]), int(y1[0])
+
+
+def _randint_span(lo: int, hi: int):
+    """(lo, span, multiplier) of jax.random.randint for int32 bounds: both
+    clipped to int32; span = (hi - lo) mod 2^32, 1 when hi <= lo, one more
+    (mod 2^32) when hi was above int32; multiplier = (2^16 mod span)^2 mod
+    2^32 mod span, which is 0 for every span above 2^16.  A span of 0 leaves
+    the remainders unreduced, as XLA's unsigned remainder by zero does."""
+    out_of_range = hi > I32_MAX
+    lo, hi = min(max(lo, I32_MIN), I32_MAX), min(max(hi, I32_MIN), I32_MAX)
+    span = 1 if hi <= lo else (hi - lo) & MASK
+    if out_of_range and hi > lo:
+        span = (span + 1) & MASK
+    rem = lambda a: a % span if span else a
+    mult = rem((rem(1 << 16) ** 2) & MASK)
+    return lo, span, mult
+
+
+def randint(key, shape, lo: int, hi: int, device) -> torch.Tensor:
+    """jax.random.randint(key, shape, lo, hi, int32): the key split in two,
+    32 bits of each per element (the higher and the lower), the offset
+    ((higher mod span)·multiplier + lower mod span) mod 2^32 mod span, added
+    to lo in int32 (wrapping).  Two K7 launches on the card."""
+    k1, k2 = split_np(key, 2)
+    higher = (bits32(k1, shape, device).to(torch.int64) & MASK)
+    lower = (bits32(k2, shape, device).to(torch.int64) & MASK)
+    lo, span, mult = _randint_span(int(lo), int(hi))
+    if span:
+        higher, lower = torch.remainder(higher, span), torch.remainder(lower, span)
+    off = (higher * mult + lower) & MASK      # each term below 2^32: no int64 overflow
+    if span:
+        off = torch.remainder(off, span)
+    v = (off + lo) & MASK
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _f32(v, device):
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def uniform_f32(words, minval: float, maxval: float) -> torch.Tensor:
+    """jax.random.uniform's float32 transform of the words: the top 23 bits
+    as the mantissa of a float in [1, 2), minus 1, times (maxval - minval),
+    plus minval, then at least minval; every step in float32."""
+    w = words.to(torch.int64) & MASK
+    f = ((w >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - _f32(1.0, w.device)
+    lo, hi = _f32(minval, w.device), _f32(maxval, w.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+# XLA's ErfInv32 (M. Giles, "Approximating the erfinv function"): a degree-8
+# polynomial in w - 2.5 where w = -log1p(-x^2) < 5, in sqrt(w) - 3 elsewhere
+ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x) -> torch.Tensor:
+    """lax.erf_inv on float32 as XLA computes it (ErfInv32), each step in
+    float32 but log1p and sqrt, which are taken in float64 and rounded to
+    float32.  torch's float32 versions are not the same function on the card
+    and on the CPU: their log1p differ in the last place, and the CPU's sqrt
+    is not correctly rounded (1 ulp off in about 0.7% of words; the card's,
+    numpy's and XLA's are).  A float64 sqrt rounded to float32 is the
+    correctly rounded float32 sqrt.  The two float64 log1p may still differ
+    in their last bit, which changes the float32 word only where it lies
+    within one float64 ulp of a float32 rounding midpoint: about 2^-28 of
+    the words, so the card and the CPU may differ by an ulp there."""
+    dev = x.device
+    f64 = lambda v: v.to(torch.float64)
+    w = -torch.log1p(f64(x * -x)).to(torch.float32)
+    lt = w < _f32(5.0, dev)
+    w = torch.where(lt, w - _f32(2.5, dev), torch.sqrt(f64(w)).to(torch.float32) - _f32(3.0, dev))
+    p = torch.where(lt, _f32(ERFINV_W_LT_5[0], dev), _f32(ERFINV_W_GE_5[0], dev))
+    for a, b in zip(ERFINV_W_LT_5[1:], ERFINV_W_GE_5[1:]):
+        p = torch.where(lt, _f32(a, dev), _f32(b, dev)) + p * w
+    return torch.where(x.abs() == _f32(1.0, dev), x * _f32(float("inf"), dev), p * x)
+
+
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(key, shape, device) -> torch.Tensor:
+    """jax.random.normal(key, shape, float32): sqrt(2)·erf_inv(u) of the
+    uniform u in (-1, 1) from the key's words.  One K7 launch on the card."""
+    u = uniform_f32(bits32(key, shape, device), NORMAL_LO, 1.0)
+    return _f32(float(np.float32(np.sqrt(2))), u.device) * erf_inv(u)
+
+
+def permutation_rounds(n: int) -> int:
+    """jax.random.permutation's sort rounds for n elements:
+    ceil(3·ln(max(1, n)) / ln(2^32 - 1)), in float64 as numpy computes it."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+
+
+def permutation(key, n: int, device) -> torch.Tensor:
+    """jax.random.permutation(key, n) (int64 indices): each round splits the
+    key into (key, sub), draws 32-bit sort keys from sub and sorts the
+    indices stably by them.  One K7 launch a round on the card."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(permutation_rounds(n)):
+        key, sub = split_np(key, 2)
+        sort_keys = bits32(sub, (n,), device).to(torch.int64) & MASK
+        x = x[torch.sort(sort_keys, stable=True).indices]
+    return x
 
 
 def _draw_dims(shape) -> tuple:
@@ -128,7 +298,7 @@ def uniform_rns_plain(key, primes, shape, device, moved: bool = False, mont: boo
     from ..ops import modmath as mm
     k_hi, k_lo = split_np(key, 2)
     full = (len(primes),) + tuple(shape)
-    hi, lo = bits32(k_hi, full, device), bits32(k_lo, full, device)
+    hi, lo = bits32_plain(k_hi, full, device), bits32_plain(k_lo, full, device)
     p = torch.tensor([int(q) for q in primes], dtype=torch.int64,
                      device=device).reshape((-1,) + (1,) * len(shape))
     out = mm.reduce64(hi, lo, p)
@@ -159,9 +329,7 @@ def uniform_rns_cuda(key, primes, shape, device, moved: bool = False, mont: bool
     L, (d, n) = len(primes), _draw_dims(shape)
     if L * d * n >= 1 << 32:
         raise ValueError("K7 counts the elements of one draw in 32 bits")
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _cuda_device(device)
     tab = _k7_table(primes, str(dev))
     k_hi, k_lo = split_np(key, 2)
     out_shape = (d, L, n) if moved else (L,) + tuple(shape)

@@ -176,6 +176,35 @@ def test_threefry_kernel_matches_plain(dev, limbs, shape, moved, mont):
     _equal(got, ttf.uniform_rns_plain(key, primes, shape, dev, moved=moved, mont=mont))
 
 
+@pytest.mark.parametrize("shape", [(7,), (256,), (1 << 16,), (3, 4, 256), (1 << 20,)])
+def test_threefry_bits_kernel_matches_plain(dev, shape):
+    """K7's raw-words mode against the plain int64 Threefry words: odd,
+    2^16 (a sort round of permutation at n = 2^16) and larger draws, one
+    launch each through the dispatcher; randint and permutation on the card
+    equal the CPU's, normal within 1e-6 (about one word in 65536 differs in
+    its last places: the card's float64 log1p, rounded to float32) with its
+    rounded σ = 3.2 gaussian integers equal (each of their word draws one
+    launch)."""
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.utils import threefry as ttf
+    key = ttf.key_from_seed(2 ** 34 + len(shape))
+    before = kernels.launches["threefry_bits"]
+    got = ttf.bits32(key, shape, dev)
+    assert kernels.launches["threefry_bits"] == before + 1
+    _equal(got, ttf.bits32_plain(key, shape, dev))
+    n = shape[0]
+    before = kernels.launches["threefry_bits"]
+    draws = (ttf.randint(key, (n,), -(1 << 30), 1 << 30, dev), ttf.normal(key, (n,), dev),
+             ttf.permutation(key, n, dev))
+    assert kernels.launches["threefry_bits"] == before + 3 + ttf.permutation_rounds(n)
+    assert torch.equal(draws[0].cpu(), ttf.randint(key, (n,), -(1 << 30), 1 << 30, "cpu"))
+    assert torch.equal(draws[2].cpu(), ttf.permutation(key, n, "cpu"))
+    want = ttf.normal(key, (n,), "cpu")
+    torch.testing.assert_close(draws[1].cpu(), want, rtol=0, atol=1e-6)
+    gauss = lambda g: torch.clamp(torch.round(g * 3.2), -19.2, 19.2)
+    assert torch.equal(gauss(draws[1].cpu()), gauss(want))
+
+
 def test_seeded_keys_on_card_match_cpu(dev):
     """A BGV relin key made seed-expanded on the card equals the CPU's (one
     DRBG seed), and a stripped copy regenerates its k1 with one K7 launch."""

@@ -7,8 +7,9 @@ Under JAX's defaults (jax_threefry_partitionable, x64 off): PRNGKey at seeds
 version and by the plain int64 torch version; the facade's new_key, split,
 bits32 and uniform_rns against the reference's rng; the moved, Montgomery
 draw of a seeded key's uniform half against the reference's
-ringkit._regen_a; and the draws the port does not have on a Threefry key
-raise."""
+ringkit._regen_a; and the six draws that once raised on a Threefry key
+(normal, randint, permutation, fold_in, gaussian_rns, ternary_rns) against
+jax.random and the reference's facade."""
 
 import numpy as np
 import pytest
@@ -23,7 +24,6 @@ from heongpu_tpu.models import ringkit as jring  # noqa: E402
 from heongpu_tpu.utils import rng as jrng  # noqa: E402
 from heongpu_tpu_torch.models import ckks as tckks  # noqa: E402
 from heongpu_tpu_torch.models import ringkit as tring  # noqa: E402
-from heongpu_tpu_torch.utils import errors as terrors  # noqa: E402
 from heongpu_tpu_torch.utils import rng as trng  # noqa: E402
 from heongpu_tpu_torch.utils import threefry as ttf  # noqa: E402
 
@@ -91,12 +91,23 @@ def test_regenerated_half_matches_the_reference():
 
 
 def test_draws_not_ported_on_a_threefry_key_raise():
-    tk = trng.new_key(1, "cpu")
-    for fn in (lambda: trng.normal(tk, (4,), "cpu"), lambda: trng.randint(tk, (4,), 0, 3, "cpu"),
-               lambda: trng.permutation(tk, 8, "cpu"), lambda: trng.fold_in(tk, 2),
-               lambda: trng.gaussian_rns(tk, PRIMES, (4,), "cpu"),
-               lambda: trng.ternary_rns(tk, PRIMES, (4,), "cpu")):
-        with pytest.raises(terrors.ParameterError, match="Threefry"):
-            fn()
+    """The six draws that raised on a Threefry key before jax.random's
+    transforms were ported now give jax.random's numbers: normal within
+    float32 rounding (1e-6), the rest bit for bit; a device with no Threefry
+    route still raises."""
+    tk, jk = trng.new_key(1, "cpu"), jrng.new_key(1)
+    np.testing.assert_allclose(trng.normal(tk, (4,), "cpu").numpy(),
+                               np.asarray(jax.random.normal(jk, (4,))), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(trng.randint(tk, (4,), 0, 3, "cpu").numpy(),
+                                  np.asarray(jax.random.randint(jk, (4,), 0, 3)))
+    np.testing.assert_array_equal(trng.permutation(tk, 8, "cpu").numpy(),
+                                  np.asarray(jax.random.permutation(jk, 8)))
+    assert trng.fold_in(tk, 2).words == tuple(int(w) for w in np.asarray(jax.random.fold_in(jk, 2)))
+    np.testing.assert_array_equal(_u32(trng.gaussian_rns(tk, PRIMES, (4,), "cpu")),
+                                  np.asarray(jrng.gaussian_rns(jk, PRIMES, (4,))))
+    np.testing.assert_array_equal(_u32(trng.ternary_rns(tk, PRIMES, (4,), "cpu")),
+                                  np.asarray(jrng.ternary_rns(jk, PRIMES, (4,))))
     with pytest.raises(ValueError):
         trng.uniform_rns(tk, PRIMES, (4,), "meta")
+    with pytest.raises(ValueError):
+        trng.randint(trng.new_key(1, "meta"), (4,), 0, 3, "meta")

@@ -29,11 +29,16 @@ int launch_threefry(const DrawParams& A, unsigned blocks, cudaStream_t) {
   run_grid(dim3{blocks, 1u, 1u}, [&] { threefry_uniform_kernel(A); });
   return 0;
 }
+
+int launch_threefry_bits(u32* out, u32 k0, u32 k1, u32 count, unsigned blocks, cudaStream_t) {
+  run_grid(dim3{blocks, 1u, 1u}, [&] { threefry_bits_kernel(out, k0, k1, count); });
+  return 0;
+}
 """)}
 
 
 @pytest.fixture(scope="module")
-def host_k7(tmp_path_factory):
+def host_lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -46,10 +51,22 @@ def host_k7(tmp_path_factory):
     if res.returncode and "barrier" in res.stderr:
         pytest.skip("the host compiler has no C++20 <barrier>")
     assert res.returncode == 0, res.stderr[-4000:]
-    fn = ctypes.CDLL(str(so)).host_threefry_uniform
-    fn.argtypes = build.SIGNATURES["hf_threefry_uniform"]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(so))
+    for name in ("threefry_uniform", "threefry_bits"):
+        fn = getattr(lib, f"host_{name}")
+        fn.argtypes = build.SIGNATURES[f"hf_{name}"]
+        fn.restype = ctypes.c_int
+    return lib.host_threefry_uniform, lib.host_threefry_bits
+
+
+@pytest.fixture(scope="module")
+def host_k7(host_lib):
+    return host_lib[0]
+
+
+@pytest.fixture(scope="module")
+def host_k7_bits(host_lib):
+    return host_lib[1]
 
 
 def run_k7(fn, key, primes, shape, moved, mont):
@@ -98,3 +115,26 @@ def test_threefry_source_rejects_empty_and_oversized_draws(host_k7):
     _, moved = run_k7(host_k7, key, primes, (2, 64), True, False)
     torch.testing.assert_close(moved, flat.transpose(0, 1).contiguous(), rtol=0, atol=0)
     assert not np.array_equal(moved.numpy().ravel(), flat.numpy().ravel())
+
+
+# raw-words draws: odd counts (a partial last block), the 2^16 words of one
+# sort round at n = 2^16, and a multi-axis draw
+BITS_SHAPES = [(1,), (7,), (255, 3), (1 << 16,), (3, 4, 256)]
+
+
+@pytest.mark.parametrize("shape", BITS_SHAPES, ids=["x".join(map(str, s)) for s in BITS_SHAPES])
+@pytest.mark.parametrize("seed", [0, 2 ** 31 + 5, -3])
+def test_threefry_bits_source_on_host_matches_numpy(host_k7_bits, shape, seed):
+    key = ttf.key_from_seed(seed)
+    for k in (key, ttf.fold_in_np(key, 1)):
+        out = torch.empty(shape, dtype=torch.int32)
+        assert host_k7_bits(out.data_ptr(), k[0], k[1], out.numel(), None) == 0
+        np.testing.assert_array_equal(out.numpy().view(np.uint32), ttf.bits32_np(k, shape))
+        torch.testing.assert_close(out, ttf.bits32_plain(k, shape, "cpu"), rtol=0, atol=0)
+
+
+def test_threefry_bits_source_rejects_empty_draws(host_k7_bits):
+    out = torch.full((4,), 7, dtype=torch.int32)
+    for count in (0, -1):
+        assert host_k7_bits(out.data_ptr(), 1, 2, count, None) != 0
+    assert out.tolist() == [7] * 4
