@@ -60,10 +60,12 @@ Phases (each raises on failure, so the script exits non-zero):
      nine shape instantiations, of K1's four pass kernels at each of its
      nine shapes, of K2 base_conv's 18 (each chunk width 4..32 and the
      chunked one for k_in > 32, with and without the fused scaling) and of
-     K6's 16 (p = 1..16) in each of its two modes, and of K7's two modes; a
-     missing line, or a K1, K2, K5, K6 or K7 instance that spills, fails; K7's
-     SASS mix (cuobjdump), which must hold the funnel shifts and xors its bound
-     counts;
+     K6's in each of its two modes (the tile kernel at p = 1..16, the
+     whole-column kernel for k <= 16 Q limbs at p = 1..8), and
+     of K7's two modes; a missing line, or a K1, K2, K5, K6 or K7 instance that
+     spills, fails; the SASS mix (cuobjdump) of K7's two modes, which must hold
+     the funnel shifts and xors their bounds count for each of the words a
+     thread computes;
   3. K1 (NTT) against its plain torch version on the card, bit for bit,
      forward and inverse, N in {2^8, 2^9, 2^11, ..., 2^16} (2^10 in phase 8):
      each of its nine shape instantiations;
@@ -307,18 +309,21 @@ DIV_OPS = 2 + SHOUP_OPS  # one ÷P stage on a word: add the rounding constant, s
 # addition, the Shoup product by q_last^-1 and its fix-up
 EXACT_OPS = 2 * SHOUP_OPS + 4
 # one word of K7: two Threefry-2x32 hashes (20 rounds of add, funnel shift and xor,
-# five key injections of two adds, the counter add and the closing xor), two Barrett
-# reductions, a Shoup product with its fix-ups and the add; a Montgomery step more.
-# Of these only the ALU pipe runs the funnel shifts (SHF), the xors (LOP3) and each
-# conditional subtraction's compare and select (ISETP, SEL): THREEFRY_ALU_OPS.
-THREEFRY_OPS = 2 * (20 * 3 + 5 * 2 + 2) + 2 * 5 + 9
-THREEFRY_ALU_OPS = 2 * (20 * 2 + 1) + 4 * 2
-# one word of K7's raw-words mode: one hash (as above) and its closing xor; of
-# these the 20 funnel shifts and 21 xors run on the ALU pipe only
-THREEFRY_WORD_OPS = 20 * 3 + 5 * 2 + 2 + 1
+# five key injections of two adds, the counter add and the closing xor), the high
+# word's lazy Shoup product by 2^32 mod p and the low word's lazy Barrett reduction
+# (SHOUP_OPS and 2), their sum, and two conditional subtractions, a = min(a, a - m)
+# of 2 each; in Montgomery form a Shoup product takes the place of the first
+# subtraction.  Of these only the ALU pipe runs the hashes' funnel shifts (SHF.L.W)
+# and xors (LOP3) and the min of each conditional subtraction: THREEFRY_ALU_OPS.
+THREEFRY_OPS = 2 * (20 * 3 + 5 * 2 + 2) + SHOUP_OPS + 2 + 1 + 2 * 2
+THREEFRY_ALU_OPS = 2 * (20 * 2 + 1) + 2
+# what the Montgomery form changes in those counts: a Shoup product for an add and a min
+MONT_OPS = SHOUP_OPS - 2
+MONT_ALU_OPS = -1
+# one word of K7's raw-words mode: one hash (as above); of its operations the 20
+# funnel shifts and 21 xors run on the ALU pipe only
+THREEFRY_WORD_OPS = 20 * 3 + 5 * 2 + 2
 THREEFRY_WORD_ALU_OPS = 20 * 2 + 1
-MONT_OPS = SHOUP_OPS + 2
-MONT_ALU_OPS = 2
 
 
 def nbytes(*ts) -> int:
@@ -419,9 +424,10 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_idle_share(fn, reps: int, tries: int = 3):
+def device_idle_share(fn, reps: int, tries: int = 3, counts: dict = None):
     """(busy ms, wall ms, idle share, {kernel: ms}) per call of fn, over `reps`
-    calls.  Busy is the union of the device events' intervals in a
+    calls (and, given `counts`, the number of each kernel's events in the
+    trace put there).  Busy is the union of the device events' intervals in a
     torch.profiler trace (only events on the card: a host op's self device
     time repeats its kernels'); wall is the host clock around an unprofiled,
     synchronized run.  The profiler's device tracing sometimes delivers no
@@ -460,15 +466,17 @@ def device_idle_share(fn, reps: int, tries: int = 3):
             busy_us += t - max(s, end)
             end = t
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (t - s) / 1e3 / reps
+        if counts is not None:
+            counts[e.name] = counts.get(e.name, 0) + 1
     busy = busy_us / 1e3 / reps
     return busy, wall, 1.0 - busy / wall, per_kernel
 
 
 # The port's kernel functions (the anonymous namespaces of kernels/csrc/*.cu) as
-# torch.profiler names them: base_conv_kernel<Kin, scaled> and div_round_kernel<p>
-# are K2's and K6's templates.
+# torch.profiler names them: base_conv_kernel<Kin, scaled> and
+# div_round_{column,tile}_kernel<p, exact> are K2's and K6's templates.
 OWN_KERNEL = re.compile(r"\(anonymous namespace\)::((?:ntt_(?:fwd|inv)[12]|mac_keys_kernel|"
-                        r"base_conv_kernel|div_round_kernel|keyswitch2_fused_kernel|"
+                        r"base_conv_kernel|div_round_(?:column_|tile_)?kernel|keyswitch2_fused_kernel|"
                         r"blind_rotate_kernel|threefry_uniform_kernel|threefry_bits_kernel)"
                         r"(?:<[^>]*>)?)\(")
 
@@ -706,22 +714,37 @@ def time_kernels(shapes, where, n, card, errs):
     text, (bound ms, bound_by))}, each label's first word the kernel's name:
     each held against its plain version (the worst error into errs), then
     timed (CUDA events, and the device ms of the hand-written kernels from
-    torch.profiler) beside the plain version and the bound."""
-    out = {}
+    torch.profiler) beside the plain version and the bound.  The profiler
+    may drop a trace's events: where it holds fewer launches of the port's
+    kernels than the calls made (counted by the wrappers), the device ms is
+    the mean launch's times the launches a call makes."""
+    from heongpu_tpu_torch import kernels
+    reps, out = 5, {}
     for name, (kf, pf, what, bnd) in shapes.items():
-        e = max_err(kf(), pf())
+        before = sum(kernels.launches.values())
+        got = kf()
+        per_call = sum(kernels.launches.values()) - before
+        e = max_err(got, pf())
         kernel = name.split()[0]
         errs[kernel] = max(errs[kernel], e)
         if e:
             raise AssertionError(f"{name} disagrees with its plain version at {what}")
         ms_k = cuda_ms(kf, reps=10)
         ms_p = cuda_ms(pf, reps=2, warm=1)
-        own = own_kernels(device_idle_share(kf, 5)[3])
+        counts = {}
+        own = own_kernels(device_idle_share(kf, reps, counts=counts)[3])
+        traced = sum(c for k, c in counts.items() if OWN_KERNEL.search(k))
         dev_ms = sum(own.values()) if own else None
+        dropped = "" if not own or traced >= reps * per_call else \
+            f" ({traced} of {reps * per_call} launches traced)"
+        if dropped:
+            dev_ms *= reps * per_call / traced
         out[name] = {"shape": what, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
-                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+                     "bound_ms": bnd[0], "bound_by": bnd[1], "launches_traced": traced}
+        share = "not measured" if not dev_ms else f"{bnd[0] / dev_ms:.1%}"
         print(f"time {name} at {where} {what} (N={n}): kernel {ms_k:.4f} ms, device "
-              f"{fmt_ms(dev_ms)} ms, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+              f"{fmt_ms(dev_ms)} ms{dropped}, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), {share} of the bound on the device [{card}]")
     return out
 
 
@@ -3068,14 +3091,17 @@ def run(dev) -> int:
     for fn, line in ptxas_summary(log, "base_conv_kernel").items():
         kp, scaled, chunked = re.search(r"base_conv_kernelILi(\d+)ELb([01])ELb([01])E", fn).groups()
         k2k6_ptxas[("base_conv", int(kp), scaled == "1", chunked == "1")] = line
-    for fn, line in ptxas_summary(log, "div_round_kernel").items():
-        p_, exact = re.search(r"div_round_kernelILi(\d+)ELb([01])E", fn).groups()
-        k2k6_ptxas[("div_exact_t" if exact == "1" else "div_round", int(p_))] = line
+    for fn, line in ptxas_summary(log, "div_round_").items():
+        kind, p_, exact = re.search(r"div_round_(column|tile)_kernelILi(\d+)ELb([01])E",
+                                    fn).groups()
+        k2k6_ptxas[("div_exact_t" if exact == "1" else "div_round", kind, int(p_))] = line
     for key, line in sorted(k2k6_ptxas.items()):
         print(f"ptxas {'mac.cu' if key[0] == 'base_conv' else 'divround.cu'} {key}: {line}")
-    if log and len(k2k6_ptxas) != 2 * 9 + 2 * rns.DIV_ROUND_MAX_STAGES:
+    if log and len(k2k6_ptxas) != 2 * 9 + 2 * (rns.DIV_ROUND_MAX_STAGES + 8):
         raise AssertionError(f"no ptxas line for each of K2 base_conv's nine instances "
-                             f"(both forms) and K6's stage counts in both modes: {k2k6_ptxas}")
+                             f"(both forms) and K6's stage counts in both modes (the tile "
+                             f"kernel at 1 to 16, the whole-column one at 1 to 8): "
+                             f"{k2k6_ptxas}")
     k7_ptxas = list(ptxas_summary(log, "threefry_uniform_kernel").values())
     for line in k7_ptxas:
         print(f"ptxas threefry.cu threefry_uniform: {line}")
@@ -3090,19 +3116,25 @@ def run(dev) -> int:
         raise AssertionError(f"no ptxas line for K7's raw-words mode: {k7w_ptxas}")
     if k7w_ptxas:
         ptxas["threefry_bits"] = k7w_ptxas[0]
-    # K7's bound takes 2 x 20 funnel shifts and 2 x 21 xors a word as ALU-only work:
-    # the compiled kernel must hold at least those (it runs straight through a word)
-    k7_sass = sass_mix(path, "threefry_uniform_kernel")
-    shf = sum(v for k, v in k7_sass.items() if k.startswith("SHF.L.W"))
-    lop3 = k7_sass.get("LOP3.LUT", 0)
-    print(f"SASS threefry.cu threefry_uniform: {sum(k7_sass.values())} instructions; "
-          f"{shf} funnel shifts, {lop3} LOP3, "
-          f"{sum(v for k, v in k7_sass.items() if k.startswith('IMAD'))} IMAD (FMA pipe), "
-          f"{sum(v for k, v in k7_sass.items() if k.startswith('IADD3'))} IADD3; "
-          + json.dumps(dict(sorted(k7_sass.items(), key=lambda kv: -kv[1]))))
-    if shf < 2 * 20 or lop3 < 2 * 21:
-        raise AssertionError(f"K7's SASS holds fewer shifts or xors than its bound counts: "
-                             f"{shf} SHF.L.W, {lop3} LOP3.LUT")
+    # K7's bound takes 2 x 20 funnel shifts and 2 x 21 xors a word as ALU-only work (20
+    # and 21 in the raw-words mode): the compiled kernels must hold at least those for
+    # each of the words a thread computes (they run straight through a thread's words)
+    k7_src = (build.CSRC / "threefry.cu").read_text()
+    for kern, macro, shf_min, lop_min in (("threefry_uniform", "K7_WORDS", 2 * 20, 2 * 21),
+                                          ("threefry_bits", "K7_BITS_WORDS", 20, 21)):
+        words = int(re.search(rf"#define {macro} (\d+)\n", k7_src).group(1))
+        mix = sass_mix(path, f"{kern}_kernel")
+        shf = sum(v for k, v in mix.items() if k.startswith("SHF.L.W"))
+        lop3 = mix.get("LOP3.LUT", 0)
+        print(f"SASS threefry.cu {kern}: {sum(mix.values())} instructions for {words} words a "
+              f"thread; {shf} funnel shifts, {lop3} LOP3, "
+              f"{sum(v for k, v in mix.items() if k.startswith('IMAD'))} IMAD (FMA pipe), "
+              f"{sum(v for k, v in mix.items() if k.startswith('IADD3'))} IADD3; gate "
+              f">= {words * shf_min} SHF.L.W and >= {words * lop_min} LOP3.LUT; "
+              + json.dumps(dict(sorted(mix.items(), key=lambda kv: -kv[1]))))
+        if shf < words * shf_min or lop3 < words * lop_min:
+            raise AssertionError(f"{kern}'s SASS holds fewer shifts or xors than its bound "
+                                 f"counts for {words} words: {shf} SHF.L.W, {lop3} LOP3.LUT")
     spills = [k for k, line in list(ks_ptxas.items()) + list(ntt_ptxas.items())
               + list(k2k6_ptxas.items()) + [("threefry_uniform", ln) for ln in k7_ptxas]
               + [("threefry_bits", ln) for ln in k7w_ptxas]

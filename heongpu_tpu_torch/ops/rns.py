@@ -288,6 +288,39 @@ class DivExactT:
         return self.plain(x)
 
 
+def _special_chain(stages, q) -> np.ndarray:
+    """K6's words for the special limbs' chain: (p-1, p-1, 4), entry (t, s) the
+    step of stage s on special limb t (DivRoundChain's docstring)."""
+    p = len(stages)
+    k = len(q) - (p - 1)
+    out = np.zeros((max(p - 1, 0), max(p - 1, 0), 4), np.uint32)
+    for t in range(p - 1):
+        pt = q[k + t]
+        for s in range(p - 1 - t):
+            st = stages[s]
+            inv = pow(st.p_last, -1, pt)
+            out[t, s] = (st.half % pt + -(-st.p_last // pt) * pt, inv, mm.shoup(inv, pt), pt)
+    return out
+
+
+def _folded_limbs(stages, q) -> np.ndarray:
+    """K6's words for the Q limbs: each limb's whole chain as one map
+    (DivRoundChain's docstring), (k, words a limb)."""
+    p = len(stages)
+    k = len(q) - (p - 1)
+    out = np.zeros((k, -(-(p + 5) // 4) * 4), np.uint32)
+    for j, qj in enumerate(q[:k]):
+        g, suffix = 1, []
+        for st in reversed(stages):
+            g = g * pow(st.p_last, -1, qj) % qj
+            suffix.append(g)
+        suffix.reverse()  # G_sj: the product of the P^-1 of stages s and later
+        c = sum(st.half * gs for st, gs in zip(stages, suffix)) % qj
+        mont = [v * (1 << 32) % qj for v in [c, suffix[0]] + [-gs % qj for gs in suffix]]
+        out[j, :p + 5] = [qj, mm.mont_pinv(qj), mm.barrett_mu(qj)] + mont
+    return out
+
+
 # The most stages one K6 launch runs (a template parameter of divround.cu).
 DIV_ROUND_MAX_STAGES = 16
 
@@ -301,17 +334,25 @@ class DivRoundChain:
     longer chain).
 
     `tab` is K6's table, packed on the host as int32 words: P_s and floor(P_s/2)
-    for each stage s (2p words), the W = k+p-1 primes q_j of stage 0's
-    remaining basis, zeros up to a multiple of 4, then for each limb j and
-    stage s (j-major) the four words (h_sj, P_s^-1 mod q_j, its Shoup
-    companion, 0), zero where limb j is gone by stage s.  h_sj is
-    floor(P_s/2) mod q_j plus the least multiple of q_j that is at least P_s,
-    so that x_j + h_sj - r_s is never negative for a rounding term r_s < P_s.
+    for each stage s (2p words), zeros up to a multiple of 4; then the special
+    limbs' chain, a (p-1, p-1) grid of four words for special limb t (the prime
+    P_t, limb k+t) and stage s, j = k+t: (h_sj, P_s^-1 mod P_t, its Shoup
+    companion, P_t), zero where the limb is gone by stage s; h_sj is
+    floor(P_s/2) mod P_t plus the least multiple of P_t that is at least P_s, so
+    that x_j + h_sj - r_s is never negative for a rounding term r_s < P_s.  Then
+    for each Q limb j the whole chain folded into one map, x_j <- x_j A_j +
+    sum_s r_s B_sj + C_j mod q_j: A_j the product of the stages' P_s^-1, G_sj
+    that of stages s and later, B_sj = -G_sj and C_j = sum_s floor(P_s/2) G_sj,
+    all mod q_j; its words are (q_j, -q_j^-1 mod 2^32, floor(2^32/q_j), C_j,
+    A_j, B_0j, ..., B_(p-1)j), with C, A and the B in Montgomery form (times
+    2^32 mod q_j), zeros up to a multiple of 4.
 
     A chain of DivExactT stages (`exact_t`) runs K6's t-exact mode: its head
-    holds [-t^-1]_{P_s} and its Shoup companion for each stage after P_s and
-    floor(P_s/2), and its four words per limb and stage are ([t]_{q_j}, its
-    Shoup companion, P_s^-1 mod q_j, its Shoup companion)."""
+    holds P_s, floor(P_s/2), [-t^-1]_{P_s} and its Shoup companion for each
+    stage, then the W = k+p-1 primes q_j of stage 0's remaining basis, zeros up
+    to a multiple of 4, and four words per limb and stage (j-major): ([t]_{q_j},
+    its Shoup companion, P_s^-1 mod q_j, its Shoup companion), zero where limb j
+    is gone by stage s."""
     stages: tuple
     tab: torch.Tensor
     max_prime: int
@@ -333,18 +374,18 @@ class DivRoundChain:
         if exact_t:
             head += [st.neg_tinv for st in stages]
             head += [mm.shoup(st.neg_tinv, st.p_last) for st in stages]
-        head += q
-        head += [0] * (-len(head) % 4)
-        body = np.zeros((w, p, 4), np.uint32)
-        for s, st in enumerate(stages):
-            for j, qj in enumerate(q[:w - s]):
-                inv = pow(st.p_last, -1, qj)
-                if exact_t:
+            head += q
+            head += [0] * (-len(head) % 4)
+            body = np.zeros((w, p, 4), np.uint32)
+            for s, st in enumerate(stages):
+                for j, qj in enumerate(q[:w - s]):
+                    inv = pow(st.p_last, -1, qj)
                     tq = st.t % qj
                     body[j, s] = (tq, mm.shoup(tq, qj), inv, mm.shoup(inv, qj))
-                else:
-                    body[j, s] = (st.half % qj + -(-st.p_last // qj) * qj, inv,
-                                  mm.shoup(inv, qj), 0)
+        else:
+            head += [0] * (-len(head) % 4)
+            body = np.concatenate([_special_chain(stages, q).ravel(),
+                                   _folded_limbs(stages, q).ravel()])
         tab = mm.u32_to_i32(np.concatenate([np.array(head, np.uint32), body.ravel()]))
         return DivRoundChain(stages=stages, tab=tab.to(stages[0].qbase.p.device),
                              max_prime=max(q + [st.p_last for st in stages]), exact_t=exact_t)
@@ -386,9 +427,10 @@ def div_round_chain_plain(x, chain: DivRoundChain):
 
 def div_round_cuda(x, chain: DivRoundChain):
     """Launch K6: every stage of the chain in one pass over x (..., k+p, N)
-    -> (..., k, N); a chain of more than DIV_ROUND_MAX_STAGES stages in one
-    launch for each of its pieces.  A chain of DivExactT stages runs the
-    t-exact mode (counted as `div_exact_t`)."""
+    -> (..., k, N), N a multiple of 4 and x 16-byte aligned; a chain of more
+    than DIV_ROUND_MAX_STAGES stages in one launch for each of its pieces.  A
+    chain of DivExactT stages runs the t-exact mode (counted as
+    `div_exact_t`)."""
     from .. import kernels
     _check_cuda(x, chain.tab)
     p, k, N = len(chain), chain.k, x.shape[-1]
@@ -397,6 +439,9 @@ def div_round_cuda(x, chain: DivRoundChain):
     if chain.max_prime >= 1 << 30:
         raise ValueError(f"div_round takes primes below 2^30, not one of "
                          f"{chain.max_prime.bit_length()} bits")
+    if N % 4 or x.data_ptr() % 16:
+        raise ValueError(f"div_round copies 16 bytes at a time: it takes N a multiple of 4 "
+                         f"(not {N}) and x 16-byte aligned")
     B = x.numel() // ((k + p) * N)
     for piece in chain.pieces:
         kp = piece.k

@@ -125,8 +125,8 @@ def bits32_plain(key, shape, device) -> torch.Tensor:
 
 
 def bits32_cuda(key, shape, device) -> torch.Tensor:
-    """Launch K7's raw-words mode: bits32_plain's words on the card, one
-    thread per word, an int32 tensor with their bits."""
+    """Launch K7's raw-words mode: bits32_plain's words on the card, a few
+    words a thread, an int32 tensor with their bits."""
     from .. import kernels
     count = _count(shape)
     if count >= 1 << 31:
@@ -317,8 +317,8 @@ def _k7_table(primes: tuple, device: str) -> torch.Tensor:
 
 
 def uniform_rns_cuda(key, primes, shape, device, moved: bool = False, mont: bool = False):
-    """Launch K7: uniform_rns_plain's function on the card, one thread per
-    output word, written straight into the output layout."""
+    """Launch K7: uniform_rns_plain's function on the card, a few words a
+    thread, written straight into the output layout."""
     from .. import kernels
     from ..ops import modmath as mm
     if moved and len(shape) != 2:

@@ -105,10 +105,10 @@ def test_base_conv_wrapper_rejects_odd_n(dev):
 
 @pytest.mark.parametrize("k,p,n", [(12, 4, 65536), (48, 6, 65536), (30, 1, 32768), (1, 1, 256),
                                    (5, 2, 4096), (7, 3, 4096), (9, 5, 4096), (12, 8, 65536),
-                                   (180, 16, 4096), (6, 20, 4096)])
+                                   (360, 16, 4096), (6, 20, 4096)])
 def test_div_round_kernel_matches_plain(dev, k, p, n):
     """K6 against the stages one after another, with p = 1 to 20 special primes:
-    180 + 16 limbs take a table above 48 KB of shared memory, 20 stages two
+    360 + 16 limbs take a tile above 48 KB of shared memory, 20 stages two
     launches (16 and 4)."""
     from heongpu_tpu_torch import kernels
     q = tnt.generate_ntt_primes(29, k, n)
@@ -126,6 +126,14 @@ def test_div_round_kernel_matches_plain(dev, k, p, n):
     _equal(got, trns.div_round_chain_plain(x, chain))
     if p == 1:
         _equal(stages[0](x), got)
+
+
+def test_div_round_wrapper_rejects_n_not_a_multiple_of_four(dev):
+    """K6 copies 16 bytes at a time."""
+    q = tnt.generate_ntt_primes(29, 3, 256)
+    chain = trns.DivRoundChain.build([trns.DivRoundLastq.build(q[:2], q[2], dev)])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        chain(torch.zeros((3, 254), dtype=torch.int32, device=dev))
 
 
 @pytest.mark.parametrize("k,p,n", [(29, 1, 32768), (1, 1, 256), (12, 3, 4096), (5, 20, 256)])

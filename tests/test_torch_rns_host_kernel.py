@@ -9,7 +9,8 @@ rns.div_round_chain_plain): base_conv at every chunk width it is built for, at
 k_in short of each and at k_in of two and three chunks, with and without the
 fused scaling, B = 1 and 3, at N = 256 and 4096, and at N = 2^16 where a block
 takes several output limbs; K6 with p = 1 to 16 special primes over k = 1 to 48
-Q limbs at N = 256 and 4096, and a chain of 20 in two pieces.  No jax.  Skips
+Q limbs (every remainder of k by the 8 Q limbs a block takes) at N = 256 and
+4096, with primes just under 2^30, and a chain of 20 in two pieces.  No jax.  Skips
 where no C++20 host compiler with <barrier> is installed."""
 
 import ctypes
@@ -32,27 +33,35 @@ torch.set_num_threads(2)
 SHIMS = Path(__file__).resolve().parent / "host_cuda"
 HARNESS = """#include <cuda_runtime.h>
 #include <barrier>
+#include <memory>
 #include <thread>
 #include <vector>
 namespace { alignas(16) uint32_t sm[1 << 14]; }
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 static std::barrier<>* g_block;
+static std::barrier<>* g_warp[32];
 void __syncthreads() { g_block->arrive_and_wait(); }
-void __syncwarp(unsigned) {}
+void __syncwarp(unsigned) { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
 """
 RUN_GRID = """
-// Runs kern over the grid: kThreads std::threads walk the blocks in turn, and
-// between two blocks thread 0 fills the shared memory with a pattern.
+// Runs kern over the grid: `threads` std::threads (a block's, whole warps) walk the
+// blocks in turn, and between two blocks thread 0 fills the shared memory with a
+// pattern.
 template <class F>
-void run_grid(dim3 grid, F kern) {
-  std::barrier<> block(kThreads);
+void run_grid(dim3 grid, F kern, int threads = kThreads) {
+  std::barrier<> block(threads);
   g_block = &block;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  for (int w = 0; w < threads / 32; ++w) {
+    warps.emplace_back(new std::barrier<>(32));
+    g_warp[w] = warps.back().get();
+  }
   const unsigned blocks = grid.x * grid.y * grid.z;
-  std::vector<std::thread> threads;
-  for (int t = 0; t < kThreads; ++t)
-    threads.emplace_back([=, &block] {
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([=, &block] {
       threadIdx.x = t;
-      blockDim.x = kThreads;
+      blockDim.x = threads;
       gridDim = grid;
       for (unsigned b = 0; b < blocks; ++b) {
         if (t == 0) memset(sm, 0xAB, sizeof(sm));
@@ -64,7 +73,7 @@ void run_grid(dim3 grid, F kern) {
         block.arrive_and_wait();
       }
     });
-  for (auto& th : threads) th.join();
+  for (auto& th : pool) th.join();
 }
 """
 SOURCES = {
@@ -83,10 +92,18 @@ int launch_base_conv(const ConvParams& P, dim3 grid, cudaStream_t) {
                  "template <bool EXACT>\nint div_chain(", """
 template <int P, bool EXACT>
 int launch_div_round(const DivParams& A, int B, cudaStream_t) {
-  if (A.words * sizeof(uint32_t) > sizeof(sm)) return 1;
-  const dim3 grid{static_cast<unsigned>((A.N + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(B), 1u};
-  run_grid(grid, [&] { div_round_kernel<P, EXACT>(A); });
+  const unsigned by = static_cast<unsigned>(B);
+  if constexpr (column_rows(P) > 0) {
+    if (A.k <= column_rows(P)) {
+      run_grid(dim3{static_cast<unsigned>((A.N + kThreads - 1) / kThreads), by, 1u},
+               [&] { div_round_column_kernel<P, EXACT>(A); });
+      return 0;
+    }
+  }
+  const int groups = kWarps / A.warps, cols = 32 * groups;
+  if (smem_bytes(groups, A.k, P) > sizeof(sm)) return 1;
+  run_grid(dim3{static_cast<unsigned>((A.N + cols - 1) / cols), by, 1u},
+           [&] { div_round_tile_kernel<P, EXACT>(A); }, 32 * A.warps * groups);
   return 0;
 }
 """),
@@ -225,10 +242,16 @@ def test_base_conv_source_rejects_a_row_wider_than_shared_memory(host_libs):
 
 def _chain(k, p, q_bits):
     """A DivRoundChain over k Q primes of q_bits bits and p 30-bit special
-    primes, built the way the contexts build their encryption chains."""
+    primes, built the way the contexts build their encryption chains.  At
+    q_bits = 30 the special primes are the p largest 30-bit primes and the Q
+    primes the next k, so every product of the folded sum nears 2^60."""
     n = 4096
-    q = tnt.generate_ntt_primes(q_bits, k, n)
-    specials = tnt.generate_ntt_primes(30, p, n)
+    if q_bits == 30:
+        primes = tnt.generate_ntt_primes(30, p + k, n)
+        q, specials = primes[p:], primes[:p]
+    else:
+        q = tnt.generate_ntt_primes(q_bits, k, n)
+        specials = tnt.generate_ntt_primes(30, p, n)
     stages, remaining = [], q + specials
     for sp in reversed(specials):
         remaining = remaining[:-1]
@@ -246,9 +269,23 @@ def run_div_round(fn, x, chain):
     return err, out
 
 
-@pytest.mark.parametrize("k,p,q_bits", [(1, 1, 29), (12, 1, 29), (30, 1, 29), (1, 4, 29),
-                                        (12, 4, 29), (48, 4, 28), (1, 6, 29), (12, 6, 28),
-                                        (48, 6, 28), (5, 8, 29), (40, 16, 28)])
+# (k, p, q_bits): BFV's p = 1, the main path's p = 4 and depth 48's p = 6 at k = 12
+# and 48, and every p from 2 to 16 once more (p = 15 and 16 reduce the folded sum
+# midway), at k of one partial chunk of K6's 8 Q limbs a block and of several with
+# a partial last one; q_bits = 30 puts every prime just under 2^30
+DIV_CASES = [(1, 1, 29), (12, 1, 29), (30, 1, 29), (1, 4, 29), (12, 4, 29), (48, 4, 28),
+             (1, 6, 29), (12, 6, 28), (48, 6, 28), (5, 8, 29), (40, 16, 28), (3, 2, 30),
+             (9, 3, 29), (17, 5, 30), (2, 7, 29), (23, 9, 28), (7, 10, 30), (11, 11, 29),
+             (13, 12, 28), (33, 13, 29), (6, 14, 30), (19, 15, 30), (47, 16, 30),
+             (48, 6, 30)]
+
+
+def test_div_cases_cover_every_stage_count():
+    assert {p for _, p, _ in DIV_CASES} == set(range(1, trns.DIV_ROUND_MAX_STAGES + 1))
+    assert {k % 8 for k, _, _ in DIV_CASES} == set(range(8))
+
+
+@pytest.mark.parametrize("k,p,q_bits", DIV_CASES)
 @pytest.mark.parametrize("n", [256, 4096])
 def test_div_round_source_on_host_matches_plain(host_libs, k, p, q_bits, n):
     chain, primes = _chain(k, p, q_bits)
@@ -259,10 +296,30 @@ def test_div_round_source_on_host_matches_plain(host_libs, k, p, q_bits, n):
     x[0, :, :2] = 0          # r = floor(P/2) at every stage
     x[0, :, 2:4] = top       # every residue at its prime's top
     x[1, -1, :3] = top[-1]   # the last special prime's top under random Q limbs
+    # the first rounding term at its largest, P_(p-1) - 1, under Q limbs at their top
+    x[1, :k, 3:5] = top[:k]
+    x[1, -1, 3:5] = int(top[-1]) - primes[-1] // 2
     err, got = run_div_round(host_libs["divround"], x, chain)
     assert err == 0
     torch.testing.assert_close(got, trns.div_round_chain_plain(x, chain), rtol=0, atol=0)
     torch.testing.assert_close(got, chain(x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k,p", [(3, 1), (12, 4), (29, 1), (48, 6)])
+def test_div_round_source_on_host_takes_a_partial_block(host_libs, k, p):
+    """N = 388, no multiple of the 32 columns of a group: the last block's groups
+    hold 4 columns or none (a block takes 1, 2 or 8 groups of 32 columns as k
+    gives 8, 4 or 1 warps to each), in both modes; an N that is no multiple of
+    4 (K6 copies 16 bytes at a time) is refused."""
+    n = 388
+    for exact in (False, True):
+        chain, primes = (_exact_chain(k, p, 29, 65537) if exact else _chain(k, p, 29))
+        x = _residues(np.random.default_rng(k + p), primes * 2, (2 * (k + p), n)).view(2, k + p, n)
+        err, got = run_div_round(host_libs["div_exact_t" if exact else "div_round"], x, chain)
+        assert err == 0
+        torch.testing.assert_close(got, trns.div_round_chain_plain(x, chain), rtol=0, atol=0)
+    err, _ = run_div_round(host_libs["div_round"], x[..., :n - 2].contiguous(), chain)
+    assert err != 0
 
 
 def test_div_round_source_on_host_runs_a_long_chain_in_pieces(host_libs):
@@ -277,6 +334,42 @@ def test_div_round_source_on_host_runs_a_long_chain_in_pieces(host_libs):
         err, got = run_div_round(host_libs["divround"], got, piece)
         assert err == 0
     torch.testing.assert_close(got, trns.div_round_chain_plain(x, chain), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("p", [7, 10, 15, 16])
+def test_div_round_source_on_host_reduces_the_folded_sum_midway(host_libs, p):
+    """A table built by hand, with every folded constant at q - 1 and every
+    rounding term at P_s - 1 (the special chain's words zero, the special words
+    0 and floor(P_s/2) replaced by P_s - 1): x A + sum r_s B + C passes 2^64 at
+    p = 16, so only its reduction after the fifteenth product keeps the result,
+    and from p = 7 on it leaves the REDC above 3q unless its high word is
+    reduced first; the kernel must give (x A + sum r_s B + C) 2^-32 mod q, in
+    both of its kernels (k = 3 and 20 Q limbs)."""
+    for k in (3, 20):
+        _check_folded_sum_at_its_top(host_libs, p, k)
+
+
+def _check_folded_sum_at_its_top(host_libs, p, k):
+    n = 256
+    primes = tnt.generate_ntt_primes(30, p + k, 4096)
+    q, specials = primes[p:], primes[:p]
+    lw = -(-(p + 5) // 4) * 4
+    head = specials + [s - 1 for s in specials]
+    head += [0] * (-len(head) % 4)
+    limbs = np.zeros((k, lw), np.uint32)
+    for j, qj in enumerate(q):
+        limbs[j, :p + 5] = [qj, tm.mont_pinv(qj), tm.barrett_mu(qj)] + [qj - 1] * (p + 2)
+    tab = tm.u32_to_i32(np.concatenate([np.array(head, np.uint32),
+                                        np.zeros(4 * (p - 1) ** 2, np.uint32), limbs.ravel()]))
+    x = torch.zeros((1, k + p, n), dtype=tm.I32)
+    x[0, :k] = torch.tensor(q, dtype=tm.I32)[:, None] - 1
+    out = torch.empty((1, k, n), dtype=tm.I32)
+    assert host_libs["divround"](x.data_ptr(), out.data_ptr(), tab.data_ptr(), 1, k, p, n,
+                                 None) == 0
+    for j, qj in enumerate(q):
+        total = (qj - 1) * (qj - 1) + sum((ps - 1) * (qj - 1) for ps in specials) + qj - 1
+        assert (total >= 1 << 64) == (p == 16)
+        assert set(out[0, j].tolist()) == {total * pow(1 << 32, -1, qj) % qj}
 
 
 def test_div_round_source_rejects_more_than_sixteen_stages(host_libs):
@@ -321,6 +414,10 @@ def test_div_exact_t_source_on_host_matches_plain(host_libs, k, p, q_bits, n):
     want = trns.div_round_chain_plain(x, chain)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(got, chain(x), rtol=0, atol=0)
-    # the rounding mode's entry on the same table reads other words: it must differ
-    err, other = run_div_round(host_libs["div_round"], x, chain)
+    # the rounding mode over the same primes computes another function: it must differ
+    stages, remaining = [], list(primes)
+    for sp in reversed(primes[k:]):
+        remaining = remaining[:-1]
+        stages.append(trns.DivRoundLastq.build(remaining, sp, "cpu"))
+    err, other = run_div_round(host_libs["div_round"], x, trns.DivRoundChain.build(stages))
     assert err == 0 and not torch.equal(other, want)

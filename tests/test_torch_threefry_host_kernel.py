@@ -25,13 +25,13 @@ from test_torch_rns_host_kernel import SHIMS, host_source  # noqa: E402
 torch.set_num_threads(2)
 
 SOURCES = {"threefry": ("int launch_threefry(", 'extern "C" int hf_threefry_uniform', """
-int launch_threefry(const DrawParams& A, unsigned blocks, cudaStream_t) {
-  run_grid(dim3{blocks, 1u, 1u}, [&] { threefry_uniform_kernel(A); });
+int launch_threefry(const DrawParams& A, dim3 grid, cudaStream_t) {
+  run_grid(grid, [&] { threefry_uniform_kernel(A); });
   return 0;
 }
 
-int launch_threefry_bits(u32* out, u32 k0, u32 k1, u32 count, unsigned blocks, cudaStream_t) {
-  run_grid(dim3{blocks, 1u, 1u}, [&] { threefry_bits_kernel(out, k0, k1, count); });
+int launch_threefry_bits(const BitsParams& A, unsigned blocks, cudaStream_t) {
+  run_grid(dim3{blocks, 1u, 1u}, [&] { threefry_bits_kernel(A); }, kBitsThreads);
   return 0;
 }
 """)}
@@ -81,11 +81,12 @@ def run_k7(fn, key, primes, shape, moved, mont):
 
 
 # (limbs, draw shape): a public key's one row, a keyswitch key's d rows (d > 1, so
-# the moved layout's counters differ from its output positions), a row of n not a
-# multiple of the block
-CASES = [(3, (256,)), (5, (4, 256)), (7, (3, 100))]
-
-
+# the moved layout's counters differ from its output positions), rows of n not a
+# multiple of the block or of the words a thread (K7's blocks take 1024 words of a
+# row, 4 a thread), a single limb in one row and in a moved (1, n) draw, and the 54
+# limbs of a depth-48 key over d > 1 rows
+CASES = [(3, (256,)), (5, (4, 256)), (7, (3, 100)), (1, (2053,)), (1, (1, 1029)),
+         (2, (2, 1027)), (54, (3, 301))]
 @pytest.mark.parametrize("L,shape", CASES, ids=[f"L{a}_{'x'.join(map(str, s))}"
                                                 for a, s in CASES])
 @pytest.mark.parametrize("seed", [0, 2 ** 31 + 5, -3])
@@ -103,6 +104,35 @@ def test_threefry_source_on_host_matches_plain(host_k7, L, shape, seed):
     assert bool((raw.long() < p).all()) and bool((raw >= 0).all())
 
 
+def _primes_above(bits, count):
+    """The `count` least primes above 2^bits whose 2^64 mod p is at least 0.9 p:
+    floor(2^32/p) falls just short of 2^(32-bits) and the Shoup companion of
+    2^32 mod p rounds down by most of a unit, so Barrett's and Shoup's quotients
+    are each one short for about half the words, and about 4% of the lazy sums
+    reach [3p, 4p)."""
+    out, v = [], (1 << bits) + 1
+    while len(out) < count:
+        if 10 * ((1 << 64) % v) >= 9 * v and all(v % d for d in range(3, int(v ** 0.5) + 1, 2)):
+            out.append(v)
+        v += 2
+    return out
+
+
+@pytest.mark.parametrize("mont", [False, True], ids=["plain", "mont"])
+def test_threefry_source_on_host_matches_plain_above_powers_of_two(host_k7, mont):
+    """Primes just above 2^28 and 2^29 (no NTT primes: K7 takes any prime below
+    2^30) where the Shoup and Barrett results are each in [p, 2p) for about half
+    the words, so the reduction's sum reaches [3p, 4p) and every conditional
+    subtraction counts."""
+    primes = _primes_above(29, 3) + _primes_above(28, 2)
+    key = ttf.key_from_seed(5)
+    for moved in (False, True):
+        err, got = run_k7(host_k7, key, primes, (2, 1100), moved, mont)
+        assert err == 0
+        want = ttf.uniform_rns_plain(key, primes, (2, 1100), "cpu", moved, mont)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_threefry_source_rejects_empty_and_oversized_draws(host_k7):
     out = torch.empty(4, dtype=torch.int32)
     tab = ttf._k7_table((536608769,), "cpu")
@@ -117,9 +147,11 @@ def test_threefry_source_rejects_empty_and_oversized_draws(host_k7):
     assert not np.array_equal(moved.numpy().ravel(), flat.numpy().ravel())
 
 
-# raw-words draws: odd counts (a partial last block), the 2^16 words of one
-# sort round at n = 2^16, and a multi-axis draw
-BITS_SHAPES = [(1,), (7,), (255, 3), (1 << 16,), (3, 4, 256)]
+# raw-words draws: odd counts (a partial last block, counts that are not a multiple
+# of the words a thread), the 2^16 words of one sort round at n = 2^16 and 3 past
+# them, and a multi-axis draw
+BITS_SHAPES = [(1,), (5,), (7,), (255, 3), (21000,), (1 << 16,), ((1 << 16) + 3,),
+               (3, 4, 256)]
 
 
 @pytest.mark.parametrize("shape", BITS_SHAPES, ids=["x".join(map(str, s)) for s in BITS_SHAPES])
