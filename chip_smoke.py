@@ -53,12 +53,16 @@ collective keys, threshold and t-of-N decryption and collective
 bootstrapping; every Threefry bits draw on the card is one launch of K7's
 raw-words mode.
 
+Then drives the parallel layer: the coefficient-sharded NTT on K1's split
+passes and the digit-sharded keyswitch on a one-rank NCCL group at the main
+path's width, and bootstrap keys aligned for a 4-way limb mesh.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
      the ptxas line (registers, stack, spills) of K3 and K4, of each of K5's
      nine shape instantiations, of K1's four pass kernels at each of its
-     nine shapes, of K2 base_conv's 18 (each chunk width 4..32 and the
+     nine shapes (whole and split: 72), of K2 base_conv's 18 (each chunk width 4..32 and the
      chunked one for k_in > 32, with and without the fused scaling) and of
      K6's in each of its two modes (the tile kernel at p = 1..16, the
      whole-column kernel for k <= 16 Q limbs at p = 1..8), and
@@ -214,6 +218,20 @@ Phases (each raises on failure, so the script exits non-zero):
      device busy and idle share of a threshold decryption and of a
      collective bootstrap, the collective keys' bytes, and K7's raw-words
      mode timed at (k, N) and (N,) against its bound.
+ 19. the parallel layer (heongpu_tpu_torch/parallel) at the main path's
+     width: (a) K1's split entry (hf_ntt_pass) at D = 2, 4 and 8 ranks on 12
+     and 16 rows of 2^16, every rank's two passes with the exchange done in
+     process, equal to K1 whole bit for bit, every launch held against plain;
+     the device ms of a split transform against K1 whole, and each pass timed
+     against its bound; (b) a one-rank NCCL group (init_process):
+     make_sharded_ntt on a one-rank 'coef' mesh equal to ntt_fwd / ntt_inv,
+     and keyswitch2_sharded on make_mesh(1) at the bench shape equal to
+     keyswitch2 through K5, launches counted from 0
+     (ntt_pass, base_conv, mac_keys and div_round must launch, keyswitch2_fused
+     must not), its device ms against K5's; one rank runs no exchange on the
+     card; (c) limb_align=4 keys at phase 11's N=256 configuration: every key's
+     limb extent divides 4, and the bootstrap's residues on the card equal the
+     CPU's.
 On every path the calls that end in one ÷P on the card (div_round_sites:
 each keyswitch, each keyswitch finish, each encryption, each BGV mod
 switch) are counted, and the path fails unless K6 launched once for each.  Phase 7 also times K2
@@ -491,11 +509,59 @@ def own_kernels(per_kernel: dict) -> dict:
     return out
 
 
+def kernels_per_call(fn):
+    """(fn's result, how many of the port's kernels one call of fn launches):
+    each wrapper's count times the kernels that count stands for
+    (KERNELS_PER_COUNT)."""
+    from heongpu_tpu_torch import kernels
+    before = dict(kernels.launches)
+    got = fn()
+    return got, sum(KERNELS_PER_COUNT.get(k, 1) * (v - before.get(k, 0))
+                    for k, v in kernels.launches.items())
+
+
+def traced_device_ms(fn, reps: int = 5, per_call: int = None, tries: int = 3):
+    """(device ms per call of the port's kernels in fn, {kernel: ms}, launches
+    traced, launches made) over a torch.profiler trace of `reps` calls.  The
+    profiler may drop a trace's events: while the trace holds fewer of the
+    port's launches than the calls made (per_call a call, counted by the
+    wrappers through kernels_per_call when not given), fn is traced again, up
+    to `tries` traces; the trace with the most launches is kept and its times
+    are scaled by made / traced.  (None, {}, 0, made) where no trace holds
+    one."""
+    if per_call is None:
+        per_call = kernels_per_call(fn)[1]
+    made, own, traced = reps * per_call, {}, 0
+    for _ in range(tries):
+        counts = {}
+        got = own_kernels(device_idle_share(fn, reps, counts=counts)[3])
+        n = sum(c for k, c in counts.items() if OWN_KERNEL.search(k))
+        if n > traced:
+            own, traced = got, n
+        if traced >= made:
+            break
+    if not own or not traced:
+        return None, {}, traced, made
+    scale = max(1.0, made / traced)
+    return sum(own.values()) * scale, {k: v * scale for k, v in own.items()}, traced, made
+
+
+def dropped_note(traced: int, made: int) -> str:
+    """' (k of m launches traced)' where the profiler dropped launches."""
+    return f" ({traced} of {made} launches traced)" if 0 < traced < made else ""
+
+
 def mac_keys_plain(d, k0, k1, base):
     """The plain version of K2's mac_keys."""
     import torch
     from heongpu_tpu_torch.ops import rns
     return torch.stack([rns.lazy_mac_mont(d, k0, base), rns.lazy_mac_mont(d, k1, base)])
+
+
+# How many kernels one count of a wrapper in kernels.launches stands for: a K1
+# transform (ntt_fwd, ntt_inv) is its two pass kernels (kernels/csrc/ntt.cu,
+# hf_ntt), every other count one kernel.
+KERNELS_PER_COUNT = {"ntt_fwd": 2, "ntt_inv": 2}
 
 
 def kernel_wrappers():
@@ -512,6 +578,7 @@ def kernel_wrappers():
         (threefry, "bits32_cuda", lambda *a: "threefry_bits", threefry.bits32_plain),
         (nttm, "ntt_cuda", lambda x, tb, inverse: "ntt_inv" if inverse else "ntt_fwd",
          lambda x, tb, inverse: (nttm.ntt_inv_plain if inverse else nttm.ntt_fwd_plain)(x, tb)),
+        (nttm, "ntt_pass_cuda", lambda *a: "ntt_pass", nttm.ntt_pass_plain),
         (rns, "mac_keys_cuda", lambda *a: "mac_keys", mac_keys_plain),
         (rns, "base_conv_cuda", lambda *a: "base_conv", rns.base_conv_plain),
         (rns, "div_round_cuda", lambda x, chain: "div_exact_t" if chain.exact_t else "div_round",
@@ -537,13 +604,16 @@ def held_shape(arg):
 
 def launch_shapes(name, args):
     """The shapes that tell a kernel's launches apart: K7's prime count, draw
-    shape and flags (its key is data), its raw-words mode's draw shape, every
-    other kernel's held_shape of each argument."""
+    shape and flags (its key is data), its raw-words mode's draw shape, a K1
+    split pass's input shape, direction, pass, ranks and rank, every other
+    kernel's held_shape of each argument."""
     if name == "threefry_uniform":
         _, primes, shape, _, moved, mont = args
         return (len(primes), tuple(shape), moved, mont)
     if name == "threefry_bits":
         return (tuple(args[1]),)
+    if name == "ntt_pass":
+        return (tuple(args[0].shape),) + tuple(args[2:])   # direction, pass, ranks, rank
     return tuple(held_shape(a) for a in args if held_shape(a) is not None)
 
 
@@ -592,7 +662,8 @@ def held_against_plain(what, errs):
 # divisions).  (module, function).
 DIV_ROUND_SITES = (("ops.keyswitch2", "keyswitch2"), ("models.ringkit", "ks_finish"),
                    ("models.ckks", "_encrypt_zero_ntt"), ("models.bfv", "encrypt"),
-                   ("models.bgv", "encrypt"), ("models.bgv", "mod_switch"))
+                   ("models.bgv", "encrypt"), ("models.bgv", "mod_switch"),
+                   ("parallel.keyswitch_sharded", "keyswitch2_sharded"))
 K6_MODES = ("div_round", "div_exact_t")
 
 
@@ -714,16 +785,11 @@ def time_kernels(shapes, where, n, card, errs):
     text, (bound ms, bound_by))}, each label's first word the kernel's name:
     each held against its plain version (the worst error into errs), then
     timed (CUDA events, and the device ms of the hand-written kernels from
-    torch.profiler) beside the plain version and the bound.  The profiler
-    may drop a trace's events: where it holds fewer launches of the port's
-    kernels than the calls made (counted by the wrappers), the device ms is
-    the mean launch's times the launches a call makes."""
-    from heongpu_tpu_torch import kernels
+    torch.profiler, corrected by traced_device_ms for launches the trace
+    dropped) beside the plain version and the bound."""
     reps, out = 5, {}
     for name, (kf, pf, what, bnd) in shapes.items():
-        before = sum(kernels.launches.values())
-        got = kf()
-        per_call = sum(kernels.launches.values()) - before
+        got, per_call = kernels_per_call(kf)
         e = max_err(got, pf())
         kernel = name.split()[0]
         errs[kernel] = max(errs[kernel], e)
@@ -731,14 +797,8 @@ def time_kernels(shapes, where, n, card, errs):
             raise AssertionError(f"{name} disagrees with its plain version at {what}")
         ms_k = cuda_ms(kf, reps=10)
         ms_p = cuda_ms(pf, reps=2, warm=1)
-        counts = {}
-        own = own_kernels(device_idle_share(kf, reps, counts=counts)[3])
-        traced = sum(c for k, c in counts.items() if OWN_KERNEL.search(k))
-        dev_ms = sum(own.values()) if own else None
-        dropped = "" if not own or traced >= reps * per_call else \
-            f" ({traced} of {reps * per_call} launches traced)"
-        if dropped:
-            dev_ms *= reps * per_call / traced
+        dev_ms, _, traced, made = traced_device_ms(kf, reps, per_call)
+        dropped = dropped_note(traced, made)
         out[name] = {"shape": what, "ms": ms_k, "device_ms": dev_ms, "plain_ms": ms_p,
                      "bound_ms": bnd[0], "bound_by": bnd[1], "launches_traced": traced}
         share = "not measured" if not dev_ms else f"{bnd[0] / dev_ms:.1%}"
@@ -1136,10 +1196,12 @@ def boot_key_bytes(keys) -> dict:
             "switch": sum(nbytes(k.k0, k.k1) for k in swk)}
 
 
-def boot_setup(n, q_bits, ctx_kw, cfg_kw, hw, seed, dev, key_dev=None, compress=False):
+def boot_setup(n, q_bits, ctx_kw, cfg_kw, hw, seed, dev, key_dev=None, compress=False,
+               limb_align=1):
     """Context, keys and a ciphertext of z ~ U(-0.5, 0.5) at the last
     base_count limbs.  Keys are made on key_dev (default: dev) from a seeded
-    torch.Generator there; compress=True makes the compressed key set."""
+    torch.Generator there; compress=True makes the compressed key set, and
+    limb_align aligns the keys' limb extents for a limb mesh of that size."""
     import torch
     from heongpu_tpu_torch.models import ckks, ckks_boot
     from heongpu_tpu_torch.utils import rng
@@ -1151,7 +1213,8 @@ def boot_setup(n, q_bits, ctx_kw, cfg_kw, hw, seed, dev, key_dev=None, compress=
     cfg = ckks_boot.BootConfig(**cfg_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    keys = ckks_boot.generate_bootstrap_keys(ctx, g, sk, cfg, compress_keys=compress)
+    keys = ckks_boot.generate_bootstrap_keys(ctx, g, sk, cfg, compress_keys=compress,
+                                             limb_align=limb_align)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     z = np.random.default_rng(seed).uniform(-0.5, 0.5, n // 2)
@@ -3030,6 +3093,232 @@ def mpc_phases(dev, card, errs, n_small=256, n_bfv=BFV_N, n_ckks=N):
     return launches, rec, {**kern_b, **kern_c}
 
 
+# The parallel layer (phase 19): the sharded NTT on K1's split passes and the
+# digit-sharded keyswitch at the main path's width, and limb_align at phase 11's N=256
+PAR_DS = (2, 4, 8)      # ranks of the in-process split transforms of (a)
+PAR_MAIN_PASS = "ntt_pass fwd1 D=2"   # the kernel record's shape of K1's split entry
+PAR_ALIGN = 4
+
+
+def split_transform(x, tb, inverse, d):
+    """K1's split passes on every rank's block of x (..., L, N), the exchange done
+    in process (chunk r of each rank's pass-1 output to rank r, the all-to-all's
+    layout): the whole transform, (..., L, N)."""
+    import torch
+    from heongpu_tpu_torch.ops import ntt as nttm
+    a, b = (tb.n2, tb.n1) if inverse else (tb.n1, tb.n2)
+    blocks = x.view(x.shape[:-1] + (a, b))
+    w = b // d
+    sends = [nttm.ntt_pass_cuda(blocks[..., r * w:(r + 1) * w].contiguous(), tb, inverse, 1, d, r)
+             for r in range(d)]
+    outs = [nttm.ntt_pass_cuda(torch.stack([s[r] for s in sends]), tb, inverse, 2, d, r)
+            for r in range(d)]
+    return torch.cat(outs, dim=-1).reshape(x.shape)
+
+
+def pass_bound(x, tb, inverse, pass_, d):
+    """One split pass's bound on its input x: x and the output once, and pass 1's
+    block of the cross twiddles with its Shoup companions and the stage table
+    (pass 2 its stage table); the butterflies of its column transforms, and
+    pass 1's cross-twiddle products."""
+    rows = x.numel() // (tb.n // d)
+    s = tb.n1 if (pass_ == 1) != inverse else tb.n2
+    tabs = ntt_tables(tb, inverse)
+    tab_bytes = (nbytes(*tabs[:2]) // d if pass_ == 1 else 0) + nbytes(
+        *(tabs[2:4] if (pass_ == 1) != inverse else tabs[4:]))
+    ops = rows * (tb.n // d) // 2 * (s.bit_length() - 1) * BUTTERFLY_OPS
+    if pass_ == 1:
+        ops += rows * (tb.n // d) * SHOUP_OPS
+    return bound(2 * nbytes(x) + tab_bytes + nbytes(tb.p), ops)
+
+
+def ntt_shapes(tb, polys, inverse, gen, dev) -> dict:
+    """time_kernels' entry for K1 whole (one direction) on random residues
+    (polys, limbs, N) over tb."""
+    from heongpu_tpu_torch.ops import ntt as nttm
+    x = rand_residues(list(tb.primes) * polys, (polys * tb.num_limbs, tb.n), gen, dev)
+    x = x.view(polys, tb.num_limbs, tb.n)
+    what = f"({polys}, {tb.num_limbs}, 2^{tb.logn})"
+    plain = nttm.ntt_inv_plain if inverse else nttm.ntt_fwd_plain
+    return {f"{'ntt_inv' if inverse else 'ntt_fwd'} {what}": (
+        lambda: nttm.ntt_cuda(x, tb, inverse), lambda: plain(x, tb), what,
+        bound(2 * nbytes(x) + nbytes(tb.p, *ntt_tables(tb, inverse)),
+              transform_ops(polys * tb.num_limbs, tb.n)))}
+
+
+def split_pass_shapes(tb, x, y, ds=PAR_DS) -> dict:
+    """time_kernels' entries for each pass of K1's split entry at D ranks in
+    ds, on rank 0's block: of x (L, N) for the forward, of its transform y
+    for the inverse; pass 2 takes D copies of pass 1's first chunk, an
+    exchange buffer's shape."""
+    import torch
+    from heongpu_tpu_torch.ops import ntt as nttm
+    shapes = {}
+    for d in ds:
+        for inverse, src in ((False, x), (True, y)):
+            a, b = (tb.n2, tb.n1) if inverse else (tb.n1, tb.n2)
+            blk = src.view(tb.num_limbs, a, b)[..., : b // d].contiguous()
+            recv = torch.stack([nttm.ntt_pass_cuda(blk, tb, inverse, 1, d, 0)[0]] * d)
+            name = "inv" if inverse else "fwd"
+            for pass_, arg in ((1, blk), (2, recv)):
+                shapes[f"ntt_pass {name}{pass_} D={d}"] = (
+                    lambda arg=arg, inverse=inverse, pass_=pass_, d=d:
+                        nttm.ntt_pass_cuda(arg, tb, inverse, pass_, d, 0),
+                    lambda arg=arg, inverse=inverse, pass_=pass_, d=d:
+                        nttm.ntt_pass_plain(arg, tb, inverse, pass_, d, 0),
+                    f"{tuple(arg.shape)}", pass_bound(arg, tb, inverse, pass_, d))
+    return shapes
+
+
+def split_transform_ms(tb, x, y, card, ds=PAR_DS, label="") -> dict:
+    """Device ms (traced_device_ms) of K1 whole at (L, N) (x forward, y
+    inverse) and of the split transform over D ranks in one process for D in
+    ds, each split result held equal to K1 whole first."""
+    from heongpu_tpu_torch.ops import ntt as nttm
+    out = {}
+    for inverse, src, want in ((False, x, y), (True, y, x)):
+        name = "inv" if inverse else "fwd"
+        ms, _, traced, made = traced_device_ms(lambda: nttm.ntt_cuda(src, tb, inverse))
+        out[f"whole {name}"] = ms
+        for d in ds:
+            if not split_transform(src, tb, inverse, d).equal(want):
+                raise AssertionError(f"split transform {name} D={d} differs from K1 whole")
+            sms, _, st, sm = traced_device_ms(lambda: split_transform(src, tb, inverse, d))
+            out[f"split {name} D={d}"] = sms
+            print(f"time split transform {'inverse' if inverse else 'forward'} "
+                  f"({tb.num_limbs}, 2^{tb.logn}) over D={d} (2·D launches, in process){label}: "
+                  f"device {fmt_ms(sms)} ms{dropped_note(st, sm)} against K1 whole {fmt_ms(ms)} "
+                  f"ms{dropped_note(traced, made)} [{card}]")
+    return out
+
+
+def parallel_phases(dev, card, errs, gen, ctx, rk):
+    """Phase 19: the parallel layer at the main path's width (N=2^16, twelve
+    29-bit Q primes, alpha 4, four special primes: ctx and its relin key rk).
+    (a) K1's split passes at D = 2, 4, 8 on 12 and 16 rows, every rank's block
+    with the exchange done in process, equal to K1 whole bit for bit, each launch
+    held against plain; device ms of a split transform against K1 whole, and of
+    each pass (the kernel record).  (b) A one-rank NCCL group (the box has one
+    card: no exchange runs on the card here; the gloo tests hold it on the CPU):
+    make_sharded_ntt on a one-rank 'coef' mesh equal to ntt_fwd / ntt_inv and
+    keyswitch2_sharded on make_mesh(1) equal to the single-device keyswitch2 (K5), launches counted from 0 (ntt_pass,
+    base_conv, mac_keys and div_round must launch, keyswitch2_fused must not);
+    the sharded keyswitch's device ms against K5's.  (c) limb_align=4 keys at
+    phase 11's N=256 configuration: every key's limb extent divides 4, and the
+    card's bootstrap equals the CPU's.  Returns (the launches of (b), record,
+    the split passes' timings)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks, ckks_boot
+    from heongpu_tpu_torch.ops import keyswitch2 as ks2m
+    from heongpu_tpu_torch.ops import ntt as nttm
+    from heongpu_tpu_torch.parallel import keyswitch_sharded as kss
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.parallel import multihost
+    from heongpu_tpu_torch.parallel import ntt_sharded as ns
+    rec = {}
+
+    # -- 19. (a) K1's split passes against K1 whole ----------------------------------------
+    t0 = time.perf_counter()
+    tq = ctx.ntt_q(0)
+    same_a = {}
+    with held_against_plain("parallel (a) split passes", errs):
+        for tb in (tq, ctx.ntt_qp):
+            x = rand_residues(list(tb.primes), (tb.num_limbs, N), gen, dev)
+            whole = nttm.ntt_cuda(x, tb, False)
+            back = nttm.ntt_cuda(whole, tb, True)
+            for d in PAR_DS:
+                f, i = split_transform(x, tb, False, d), split_transform(whole, tb, True, d)
+                same_a[f"{tb.num_limbs} rows D={d}"] = (torch.equal(f, whole)
+                                                        and torch.equal(i, back)
+                                                        and torch.equal(i, x))
+        torch.cuda.synchronize()
+    print(f"parallel (a) K1 split passes at D={PAR_DS} against K1 whole, 12 and 16 rows of "
+          f"2^16: {same_a}; {time.perf_counter() - t0:.1f} s")
+    if not all(same_a.values()):
+        raise AssertionError(f"parallel (a): K1's split passes differ from K1 whole: {same_a}")
+    x = rand_residues(list(tq.primes), (tq.num_limbs, N), gen, dev)
+    y = nttm.ntt_cuda(x, tq, False)
+    rec["split_transform_device_ms"] = split_transform_ms(tq, x, y, card)
+    pass_rec = time_kernels(split_pass_shapes(tq, x, y), "the parallel phase's", N, card, errs)
+
+    # -- 19. (b) a one-rank NCCL group -----------------------------------------------------
+    t0 = time.perf_counter()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    multihost.init_process(f"127.0.0.1:{port}", 0, 1)
+    try:
+        mesh = meshlib.make_mesh(1)
+        fwd, inv = ns.make_sharded_ntt(
+            DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("coef",)), tq)
+        ks2 = ctx.ks2[0]
+        sc = kss.stack_convs(ks2)
+        poly = rand_residues(list(ctx.q_primes), (len(ctx.q_primes), N), gen, dev)
+        args = (ks2, sc, ctx.ntt_qp_at(0), ctx.base_qp_at(0), tq)
+        kernels.reset_launches()
+        what = "parallel (b) one-rank NCCL group"
+        with held_against_plain(what, errs), div_round_sites(what):
+            y4 = fwd(ns.to_four_step(x, tq))
+            x4 = inv(y4)
+            s0, s1 = kss.keyswitch2_sharded(mesh, poly, rk.k0, rk.k1, *args)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        r0, r1 = ks2m.keyswitch2(poly, rk.k0, rk.k1, ks2, ctx.ntt_qp_at(0), ctx.base_qp_at(0),
+                                 False, True, tq)
+        same_b = {"ntt_fwd": torch.equal(ns.from_four_step_ntt(y4), y),
+                  "ntt_inv": torch.equal(x4, ns.to_four_step(x, tq)),
+                  "keyswitch": torch.equal(s0, r0) and torch.equal(s1, r1)}
+        print(f"{what}: sharded NTT (12, 2^16) and keyswitch (bench shape: 12 Q limbs, 3 digits, "
+              f"16-limb Q~) equal to ntt_fwd / ntt_inv and to keyswitch2 (K5): {same_b}; "
+              f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+        if not all(same_b.values()):
+            raise AssertionError(f"parallel (b): the sharded layer differs: {same_b}")
+        require_launched(what, launches, ("ntt_pass", "base_conv", "mac_keys", "div_round"))
+        if launches["keyswitch2_fused"]:
+            raise AssertionError(f"parallel (b): the sharded keyswitch launched K5: {launches}")
+        ks_ms, _, ks_tr, ks_made = traced_device_ms(
+            lambda: kss.keyswitch2_sharded(mesh, poly, rk.k0, rk.k1, *args))
+        k5_ms, _, k5_tr, k5_made = traced_device_ms(
+            lambda: ks2m.keyswitch2(poly, rk.k0, rk.k1, ks2, ctx.ntt_qp_at(0), ctx.base_qp_at(0),
+                                    False, True, tq))
+        print(f"time keyswitch2_sharded on one rank at the bench shape: device {fmt_ms(ks_ms)} ms"
+              f"{dropped_note(ks_tr, ks_made)} against keyswitch2 through K5 {fmt_ms(k5_ms)} ms"
+              f"{dropped_note(k5_tr, k5_made)} [{card}]")
+    finally:
+        dist.destroy_process_group()
+    rec["one_rank"] = {"identical": same_b, "launches": launches,
+                       "keyswitch_sharded_device_ms": ks_ms, "keyswitch_k5_device_ms": k5_ms}
+
+    # -- 19. (c) limb_align=4 at phase 11's N=256 ------------------------------------------
+    t0 = time.perf_counter()
+    cctx, csk, ckeys, cct, z, _ = boot_setup(256, PREC_Q_BITS, PREC_CTX, PREC_CFG, 16, 21, dev,
+                                             key_dev="cpu", limb_align=PAR_ALIGN)
+    ext = sorted({k.k0.shape[1] for k in ckeys.gk.keys.values()} | {ckeys.rk.k0.shape[1]})
+    cpu_out = ckks_boot.regular_bootstrap(cctx, cct, ckeys)
+    dctx = ckks.make_context(256, PREC_Q_BITS, device=dev, **PREC_CTX)
+    what = f"bootstrap N=256 limb_align={PAR_ALIGN}"
+    with held_against_plain(what, errs), div_round_sites(what):
+        out = ckks_boot.regular_bootstrap(
+            dctx, ckks.Ciphertext(cct.c.to(dev), cct.size, cct.level, cct.scale),
+            boot_keys_to(ckeys, dev))
+        torch.cuda.synchronize()
+    same_c = torch.equal(out.c.cpu(), cpu_out.c) and out.level == cpu_out.level
+    err_c, _ = boot_error(cctx, csk, cpu_out, z)
+    print(f"parallel (c) {what}: {len(ckeys.gk.keys)} Galois keys and the relin key at limb "
+          f"extents {ext}; card residues identical to the CPU plain path's: {same_c}; max error "
+          f"{err_c:.3e} (limit {TOL_BOOT_PRECISE}); {time.perf_counter() - t0:.1f} s")
+    if any(e % PAR_ALIGN for e in ext) or not same_c or not err_c < TOL_BOOT_PRECISE:
+        raise AssertionError("parallel (c): a key extent 4 does not divide, card and CPU differ, "
+                             "or the error is above the limit")
+    rec["limb_align"] = {"extents": ext, "identical_to_cpu": same_c, "max_abs_err": err_c}
+    return launches, rec, pass_rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3080,13 +3369,14 @@ def run(dev) -> int:
         ptxas["keyswitch2_fused"] = ks_ptxas[(256, 256)]
     ntt_ptxas = {}
     for fn, line in ptxas_summary(log, "ntt_").items():
-        name, l1, l2 = re.search(r"(ntt_(?:fwd|inv)[12])ILi(\d+)ELi(\d+)E", fn).groups()
-        ntt_ptxas[(name, 1 << int(l1), 1 << int(l2))] = line
-    for (name, n1, n2), line in sorted(ntt_ptxas.items()):
-        print(f"ptxas ntt.cu {name} (n1, n2) = ({n1}, {n2}): {line}")
-    if log and len(ntt_ptxas) != 4 * 9:
-        raise AssertionError(f"no ptxas line for each of K1's four passes at nine shapes: "
-                             f"{ntt_ptxas}")
+        name, l1, l2, split = re.search(r"(ntt_(?:fwd|inv)[12])ILi(\d+)ELi(\d+)ELb([01])E",
+                                        fn).groups()
+        ntt_ptxas[(name, 1 << int(l1), 1 << int(l2), split == "1")] = line
+    for (name, n1, n2, split), line in sorted(ntt_ptxas.items()):
+        print(f"ptxas ntt.cu {name}{' split' if split else ''} (n1, n2) = ({n1}, {n2}): {line}")
+    if log and len(ntt_ptxas) != 2 * 4 * 9:
+        raise AssertionError(f"no ptxas line for each of K1's four passes at nine shapes, whole "
+                             f"and split: {ntt_ptxas}")
     k2k6_ptxas = {}
     for fn, line in ptxas_summary(log, "base_conv_kernel").items():
         kp, scaled, chunked = re.search(r"base_conv_kernelILi(\d+)ELb([01])ELb([01])E", fn).groups()
@@ -3142,9 +3432,12 @@ def run(dev) -> int:
     if spills:
         raise AssertionError(f"K1, K2, K5, K6 or K7 instances spill: {spills}")
     for d in ("fwd", "inv"):
-        if (f"ntt_{d}1", 256, 256) in ntt_ptxas:
-            ptxas[f"ntt_{d}"] = "; ".join(f"pass {k}: {ntt_ptxas[(f'ntt_{d}{k}', 256, 256)]}"
-                                          for k in (1, 2))
+        if (f"ntt_{d}1", 256, 256, False) in ntt_ptxas:
+            ptxas[f"ntt_{d}"] = "; ".join(
+                f"pass {k}: {ntt_ptxas[(f'ntt_{d}{k}', 256, 256, False)]}" for k in (1, 2))
+    if ("ntt_fwd1", 256, 256, True) in ntt_ptxas:
+        ptxas["ntt_pass"] = "; ".join(f"{d}{k}: {ntt_ptxas[(f'ntt_{d}{k}', 256, 256, True)]}"
+                                      for d in ("fwd", "inv") for k in (1, 2))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2024)
@@ -3172,20 +3465,15 @@ def run(dev) -> int:
         faster), the bound, and the device ms of each of its two passes and of both
         (torch.profiler)."""
         rows = polys * tb.num_limbs
-        x = rand_residues(list(tb.primes) * polys, (rows, tb.n), gen, dev)
-        x = x.view(polys, tb.num_limbs, tb.n)
-        kern = lambda: nttm.ntt_cuda(x, tb, inverse)
-        plain = nttm.ntt_inv_plain if inverse else nttm.ntt_fwd_plain
+        (kern, plain, shape, bnd), = ntt_shapes(tb, polys, inverse, gen, dev).values()
         ms = cuda_ms(kern, reps=20)
-        pms = cuda_ms(lambda: plain(x, tb), reps=3)
-        bnd = bound(2 * nbytes(x) + nbytes(tb.p, *ntt_tables(tb, inverse)),
-                    transform_ops(rows, tb.n))
-        passes = {k.split("<")[0]: v for k, v in own_kernels(device_idle_share(kern, 10)[3]).items()}
-        shape = f"({polys}, {tb.num_limbs}, 2^{tb.logn})"
+        pms = cuda_ms(plain, reps=3)
+        dev_ms, own, traced, made = traced_device_ms(kern, 10)
+        passes = {k.split("<")[0]: v for k, v in own.items()}
         name = "ntt_inv" if inverse else "ntt_fwd"
-        dev_ms = sum(passes.values()) if passes else None
         print(f"time {name} {shape}, {rows} rows: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]}); device {fmt_ms(dev_ms)} ms, by pass "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}); device {fmt_ms(dev_ms)} ms"
+              f"{dropped_note(traced, made)}, by pass "
               + ", ".join(f"{k} {v:.4f}" for k, v in sorted(passes.items())) + f" [{card}]")
         return {"shape": shape, "rows": rows, "ms": ms, "plain_ms": pms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "device_ms": dev_ms, "passes": passes}
@@ -3416,8 +3704,7 @@ def run(dev) -> int:
         bnd = keyswitch_bound(fargs)
         # the device time alone (torch.profiler): events around back-to-back calls read
         # the host's launch rate where the host is the slower
-        own = own_kernels(device_idle_share(kern, 10)[3])
-        dev_ms = sum(own.values()) if own else None
+        dev_ms = traced_device_ms(kern, 10)[0]
         ks_levels[level] = {"ms": ms, "staged_ms": sms, "ratio_to_staged": ms / sms,
                             "plain_ms": pms, "bound_ms": bnd[0], "bound_by": bnd[1],
                             "device_ms": dev_ms, "kernel_runs_ms": k_ms,
@@ -3455,17 +3742,20 @@ def run(dev) -> int:
     bgv_launches, bgv_rec, bgv_kern = bgv_phases(dev, card, errs, gen)
     # -- 18. MPC ------------------------------------------------------------------------
     mpc_launches, mpc_rec, mpc_kern = mpc_phases(dev, card, errs)
-    # each kernel's launches on the ten paths, each run counted from 0 just before it
+    # -- 19. the parallel layer ------------------------------------------------------------
+    par_launches, par_rec, par_kern = parallel_phases(dev, card, errs, gen, ctx, rk)
+    # each kernel's launches on the eleven paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
                 + v2_launches[k] + bfv_launches[k] + m1_launches[k] + bgv_launches[k]
-                + mpc_launches[k] for k in launches}
+                + mpc_launches[k] + par_launches[k] for k in launches}
     # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's, its
     # raw-words mode at MPC BFV's widest draw (a relin round's gaussian, (29, 2^15))
     k7_kern = boot_rec["compressed"]["kernels"]
     for name, r in (("div_exact_t", bgv_kern["div_exact_t keyswitch"]),
                     ("threefry_uniform", next(iter(k7_kern.values()))),
-                    ("threefry_bits", next(iter(mpc_kern.values())))):
+                    ("threefry_bits", next(iter(mpc_kern.values()))),
+                    ("ntt_pass", par_kern[PAR_MAIN_PASS])):
         times[name], bounds[name] = (r["ms"], r["plain_ms"]), (r["bound_ms"], r["bound_by"])
     times.update(tfhe_times)
     bounds.update(tfhe_bounds)
@@ -3490,6 +3780,8 @@ def run(dev) -> int:
                                     "heongpu_tpu/utils/rng.py:127"),
                "threefry_bits": ("heongpu_tpu_torch/kernels/csrc/threefry.cu",
                                  "heongpu_tpu/utils/rng.py:84"),
+               "ntt_pass": ("heongpu_tpu_torch/kernels/csrc/ntt.cu",
+                            "heongpu_tpu/parallel/ntt_sharded.py:78"),
                "keyswitch2_fused": ("heongpu_tpu_torch/kernels/csrc/keyswitch.cu",
                                     "heongpu_tpu/ops/keyswitch_pallas.py:148")}
     kernels_rec = [
@@ -3510,14 +3802,16 @@ def run(dev) -> int:
     k_shapes = {f"{phase}: {lbl}": (lbl.split()[0], r)
                 for phase, recs in (("main", k2k6), ("bootstrap", boot_full["kernels"]),
                                     ("bfv", bfv_default["kernels"]), ("bgv", bgv_kern),
-                                    ("compressed bootstrap", k7_kern), ("mpc", mpc_kern))
+                                    ("compressed bootstrap", k7_kern), ("mpc", mpc_kern),
+                                    ("parallel", par_kern))
                 for lbl, r in recs.items()}
     main_label = {"mac_keys": ("main", "mac_keys"),
                   "base_conv": ("main", "base_conv 4->16 B=1 scaled"),
                   "div_round": ("main", "div_round keyswitch"),
                   "div_exact_t": ("bgv", "div_exact_t keyswitch"),
                   "threefry_uniform": ("compressed bootstrap", next(iter(k7_kern))),
-                  "threefry_bits": ("mpc", next(iter(mpc_kern)))}
+                  "threefry_bits": ("mpc", next(iter(mpc_kern))),
+                  "ntt_pass": ("parallel", PAR_MAIN_PASS)}
     for k in kernels_rec:
         if k["name"] in main_label:
             k.update(device_ms=k_shapes[": ".join(main_label[k["name"]])][1]["device_ms"],
@@ -3543,6 +3837,7 @@ def run(dev) -> int:
               "ckks_method1_launches": m1_launches, "ckks_method1": m1_rec,
               "bgv_launches": bgv_launches, "bgv": bgv_rec,
               "mpc_launches": mpc_launches, "mpc": mpc_rec,
+              "parallel_launches": par_launches, "parallel": par_rec,
               "div_round_runs": DIV_ROUND_RUNS}
     busy = {"CKKS mult+relin (Method II)": ckks_prof,
             "CKKS mult+relin, Method I": m1_rec["profile"],

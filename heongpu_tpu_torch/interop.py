@@ -17,6 +17,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .models import bfv, bgv, ckks, ckks_boot, ckks_boot_ext, mpc, ringkit, tfhe, tfhe_int
 from .ops import modmath as mm
@@ -38,13 +39,16 @@ def to_numpy(t):
     """Residues -> the reference's numpy uint32 layout (int32 tensors are
     reinterpreted bit for bit).  A key, ciphertext or HUint becomes a dict of
     its fields, each converted the same way; a GaloisKey a dict of those, by
-    Galois element."""
+    Galois element.  A DTensor (parallel/mesh.py) gives the whole array, as
+    np.asarray of a sharded JAX array does: every rank of its mesh calls it."""
     if isinstance(t, ringkit.GaloisKey):
         return {elt: to_numpy(k) for elt, k in t.keys.items()}
     if dataclasses.is_dataclass(t) and not isinstance(t, type):
         return {f.name: to_numpy(getattr(t, f.name)) for f in dataclasses.fields(t)}
     if not isinstance(t, torch.Tensor):
         return t
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     a = t.detach().cpu().contiguous().numpy()
     return a.view(np.uint32) if a.dtype == np.int32 else a
 

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, bound with ctypes.
 
 The wrappers live beside their plain torch versions (ops/ntt.py:
-`ntt_cuda`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`, `div_round_cuda`
+`ntt_cuda` and `ntt_pass_cuda`, K1's split passes, counted as `ntt_pass`; ops/rns.py: `mac_keys_cuda`, `base_conv_cuda`, `div_round_cuda`
 (K6, counted as `div_round` or, in its t-exact mode, `div_exact_t`);
 utils/threefry.py: `uniform_rns_cuda` and `bits32_cuda` (K7's two modes,
 counted as `threefry_uniform` and `threefry_bits`);
@@ -18,7 +18,7 @@ import torch
 
 from . import build
 
-launches = {"ntt_fwd": 0, "ntt_inv": 0, "mac_keys": 0, "base_conv": 0,
+launches = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_pass": 0, "mac_keys": 0, "base_conv": 0,
             "blind_rotate": 0, "blind_rotate2": 0, "keyswitch2_fused": 0, "div_round": 0,
             "div_exact_t": 0, "threefry_uniform": 0, "threefry_bits": 0}
 

@@ -39,6 +39,7 @@ _U = ctypes.c_uint
 # uint32 constant as c_uint
 SIGNATURES = {
     "hf_ntt": [_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "hf_ntt_pass": [_I, _I, _P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 8,
     "hf_mac_keys": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hf_base_conv": [_P] * 7 + [_I] * 5 + [_P],
     "hf_div_round": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -29,7 +29,8 @@ the Galois and relin keys seed-expanded and stripped (leveled_boot_keys):
 each use regenerates the key's uniform half (K7 on the card).  Its seeds
 are the port's own, kept apart where the reference's collide, so such a
 set and the residues of a bootstrap with it differ from the reference's.
-The limb alignment of keys for a sharded mesh is not ported.
+limb_align > 1 generates each key at a level whose limb extent divides a
+limb mesh's size, so that the key set shards evenly (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -240,13 +241,6 @@ def _build_piece(ctx: CkksContext, diags: Dict[int, np.ndarray], level: int,
     return Piece(level=level, n1=n1, giants=tuple(giants), pt_scale=scale, depth=depth)
 
 
-def _check_ported(limb_align: int):
-    if limb_align != 1:
-        raise errors.ParameterError(
-            "limb_align != 1 aligns keys for sharding on a device mesh, which is not "
-            "ported yet (ROADMAP.md, queue 1: the parallel slice)")
-
-
 def leveled_boot_keys(ctx, key, sk, pieces, aux_lvl: int, compress_keys: bool = False,
                       extra_steps_lvl: dict = None, include_giants: bool = True,
                       limb_align: int = 1, inv_form: bool = False):
@@ -256,8 +250,10 @@ def leveled_boot_keys(ctx, key, sk, pieces, aux_lvl: int, compress_keys: bool = 
     extra_steps_lvl {step: level} adds steps (less-key mode's power-of-two
     chain); include_giants=False leaves the giant steps to compose from it.
     The draw order is the reference's: level groups in order, then conj,
-    then relin.  limb_align != 1 (keys cut to shard evenly on a limb mesh)
-    raises errors.ParameterError.
+    then relin.  limb_align > 1 moves each key to the deepest level at or
+    above its own whose limb extent (active + special primes) limb_align
+    divides, so that every key shards evenly on a limb mesh of that size
+    (parallel/mesh.py); it costs at most limb_align - 1 limbs a key.
 
     compress_keys=True makes every key seed-expanded and stores it stripped
     (k0 only).  Its seeds, from seed0 = _compress_seed(key) < 2^31: conj
@@ -270,13 +266,21 @@ def leveled_boot_keys(ctx, key, sk, pieces, aux_lvl: int, compress_keys: bool = 
     anyone holding the set can recover the secret key.  So the port's compressed set is not the reference's
     bit for bit (ROADMAP.md, queue 3); its error halves are, key for key.
     """
-    _check_ported(limb_align)
     step_lvl = dict(extra_steps_lvl or {})
     for pc in pieces:
         for g, babies, _ in pc.giants:
             for step in (g, *babies) if include_giants else babies:
                 if step:
                     step_lvl[step] = min(step_lvl.get(step, 1 << 30), pc.level)
+
+    def align(lv):
+        while lv > 0 and (ctx.active(lv) + len(ctx.p_primes)) % limb_align:
+            lv -= 1
+        return lv
+
+    if limb_align > 1:
+        step_lvl = {s: align(lv) for s, lv in step_lvl.items()}
+        aux_lvl = align(aux_lvl)
     by_level = {}
     for s, lv in step_lvl.items():
         by_level.setdefault(lv, []).append(s)
@@ -324,10 +328,9 @@ def generate_bootstrap_keys(ctx: CkksContext, key, sk: ringkit.SecretKey,
                             inv_form: bool = False) -> BootKeys:
     """Rotation / conj / relin keys and the factored-DFT plaintext tables with
     the EvalMod constants folded in.  compress_keys=True stores the Galois and
-    relin keys stripped (leveled_boot_keys); limb_align != 1 raises
-    errors.ParameterError (keys aligned for a limb mesh are not ported)."""
+    relin keys stripped, and limb_align > 1 aligns every key's limb extent to
+    a limb mesh of that size (leveled_boot_keys)."""
     cfg = cfg or BootConfig()
-    _check_ported(limb_align)
     if msg_scale is None:
         # a composite base needs a composite scale (see BootConfig.base_count)
         msg_scale = float(ctx.default_scale) ** cfg.base_count

@@ -21,8 +21,8 @@ sparse-secret switching around the mod-raise, and less-key mode.
 
 Every step after the diagonals is exact integer arithmetic on the port's
 CKKS surface and returns the reference's residues.  compress_keys=True
-stores the Galois and relin keys stripped, as ckks_boot does; keys aligned
-for a limb mesh (limb_align != 1) raise errors.ParameterError.
+stores the Galois and relin keys stripped, and limb_align > 1 aligns the
+keys for a limb mesh, as ckks_boot does.
 """
 
 from __future__ import annotations
@@ -105,7 +105,6 @@ def generate_bootstrap_keys_v2(ctx: CkksContext, key, sk: ringkit.SecretKey,
       slim / bit / gate: StoC at the chain's tail (ending on the boot base),
       CtoS at levels 0..p1-1 after the mod-raise; no trailing StoC."""
     cfg = cfg or BootConfigV2()
-    ckks_boot._check_ported(limb_align)
     n = ctx.n
     q0 = _q0(ctx, cfg.base_count)
     if msg_scale is None:

@@ -16,6 +16,9 @@ at psi^(2j+1) with j = eval_order(n)[p].
 (kernels/csrc/ntt.cu) for CUDA tensors and run the plain int64 stage path
 (`ntt_fwd_plain` / `ntt_inv_plain`) for CPU tensors.  Both return canonical
 residues, so they agree bit for bit with each other and with the reference.
+`ntt_pass` runs one of the two passes on one rank's block of a transform
+sharded over d ranks (parallel/ntt_sharded.py): K1's split entry on the
+card, the same stage functions on the CPU.
 """
 
 from __future__ import annotations
@@ -412,6 +415,110 @@ def ntt_fwd(x, tb: NttTables):
 def ntt_inv(x, tb: NttTables):
     """NTT domain (storage order) -> coefficient domain."""
     return _dispatch(x, tb, inverse=True)
+
+
+# ---------------------------------------------------------------------------
+# one pass of a transform sharded over d ranks (parallel/ntt_sharded.py)
+# ---------------------------------------------------------------------------
+
+CUDA_ERROR_INVALID_VALUE = 1     # hf_ntt_pass's answer to an (N, d) it does not take
+
+
+def pass_shapes(tb: NttTables, inverse: bool, pass_: int, d: int):
+    """(in, out) trailing shapes of one pass on a rank's block, C = n1/d and
+    W = n2/d, lead dims (and the limb axis L) before them, the exchange
+    buffer's rank axis d in front of everything:
+      forward 1: (L, n1, W) -> (d, L, W, C);  forward 2: (d, L, W, C) -> (L, n2, C);
+      inverse 1: (L, n2, C) -> (d, L, C, W);  inverse 2: (d, L, C, W) -> (L, n1, W).
+    Chunk j of a pass-1 output is what rank j needs, so one all-to-all of
+    equal chunks between the passes is the whole exchange."""
+    L, n1, n2 = tb.num_limbs, tb.n1, tb.n2
+    if pass_ not in (1, 2) or d < 1 or d & (d - 1) or n1 % d:
+        raise ValueError(f"no pass {pass_} over {d} ranks at N={tb.n}")
+    c, w = n1 // d, n2 // d
+    block, xchg = ((L, n2, c), (L, c, w)) if inverse else ((L, n1, w), (L, w, c))
+    out = (L, n1, w) if inverse else (L, n2, c)
+    return ((block, (d,) + xchg) if pass_ == 1 else ((d,) + xchg, out))
+
+
+def _check_pass(x, tb, inverse, pass_, d, rank):
+    shp_in, _ = pass_shapes(tb, inverse, pass_, d)
+    if tuple(x.shape[-3:]) != shp_in[-3:] or (pass_ == 2 and (x.ndim < 4 or x.shape[0] != d)):
+        raise ValueError(f"pass {pass_} over {d} ranks takes (..., {shp_in}) residues, "
+                         f"got {tuple(x.shape)}")
+    if not 0 <= rank < d:
+        raise ValueError(f"rank {rank} outside [0, {d})")
+    if x.device != tb.device:
+        raise ValueError(f"residues on {x.device}, tables on {tb.device}")
+
+
+def ntt_pass_plain(x, tb: NttTables, inverse: bool, pass_: int, d: int = 1, rank: int = 0):
+    """Plain version of ntt_pass_cuda: the stage functions of ntt_fwd_plain /
+    ntt_inv_plain on rank `rank`'s block, in pass_shapes' layouts."""
+    _check_pass(x, tb, inverse, pass_, d, rank)
+    L, n1, n2 = tb.num_limbs, tb.n1, tb.n2
+    c, w = n1 // d, n2 // d
+    p = tb.p.to(mm.I64)
+    pl = p[:, None, None]
+    y = x.to(mm.I64)
+    if pass_ == 2:                       # (d, ..., L, a, b) -> (..., L, d*a, b)
+        y = y.movedim(0, -3)
+        y = y.reshape(y.shape[:-3] + (-1, y.shape[-1]))
+    if not inverse and pass_ == 1:
+        y = _merged_ct_stages(y, tb.tw1, p)
+        twm = tb.tw_mat.view(L, n1, n2)[:, :, rank * w:(rank + 1) * w].to(mm.I64)
+        y = torch.remainder(y * twm, pl)
+    elif not inverse:
+        y = _gs_stages(y, tb.tw2, p)
+    elif pass_ == 1:
+        y = _ct_stages(y, tb.itw2, p)
+        itwm = tb.itw_mat.view(L, n1, n2)[:, rank * c:(rank + 1) * c, :].to(mm.I64)
+        y = torch.remainder(y * itwm.transpose(-1, -2), pl)
+    else:
+        y = _merged_gs_stages(y, tb.itw1, p)
+    if pass_ == 1:                       # (..., L, d*a, b) -> (d, ..., L, b, a)
+        y = y.reshape(y.shape[:-2] + (d, -1, y.shape[-1])).movedim(-3, 0).transpose(-1, -2)
+    return y.contiguous().to(mm.I32)
+
+
+def ntt_pass_cuda(x, tb: NttTables, inverse: bool, pass_: int, d: int = 1, rank: int = 0):
+    """Launch one pass of K1's split entry (hf_ntt_pass, kernels/csrc/ntt.cu) on
+    rank `rank`'s block.  Raises ValueError for an (N, d) whose blocks are not
+    whole tiles of the kernel (d <= 16 at N = 2^16, 8 at 2^15, 4 at 2^14, 2 at
+    2^13, 1 below)."""
+    from .. import kernels
+    _check_pass(x, tb, inverse, pass_, d, rank)
+    if not x.is_cuda or x.dtype != mm.I32 or not x.is_contiguous():
+        raise ValueError("ntt_pass_cuda takes contiguous int32 CUDA residues")
+    if max(tb.primes) >= 1 << 30:
+        raise ValueError("the lazy butterflies need primes < 2**30")
+    _, shp_out = pass_shapes(tb, inverse, pass_, d)
+    lead = x.shape[1:-3] if pass_ == 2 else x.shape[:-3]
+    out_shape = (shp_out[:1] + lead + shp_out[1:]) if pass_ == 1 else (lead + shp_out)
+    out = torch.empty(out_shape, dtype=mm.I32, device=x.device)
+    pre = "itw" if inverse else "tw"
+    tabs = [getattr(tb, pre + k) for k in ("_mat", "_mat_sh", "1p", "1p_sh", "2p", "2p_sh")]
+    rows = x.numel() // (tb.n // d)
+    err = kernels.library().hf_ntt_pass(
+        int(inverse), pass_, x.data_ptr(), out.data_ptr(), rows, tb.num_limbs, tb.n1, tb.n2,
+        d, rank, tb.p.data_ptr(), *(t.data_ptr() for t in tabs), kernels.stream_of(x))
+    if err == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"K1's split passes do not take N={tb.n} over {d} ranks: a rank's "
+                         f"block must hold whole tiles")
+    kernels.check(err, "ntt_pass")
+    kernels.launches["ntt_pass"] += 1
+    return out
+
+
+def ntt_pass(x, tb: NttTables, inverse: bool, pass_: int, d: int = 1, rank: int = 0):
+    """One pass of a transform sharded over d ranks on rank `rank`'s block
+    (pass_shapes): K1's split entry for CUDA tensors, the plain stages for CPU
+    tensors."""
+    if x.is_cuda:
+        return ntt_pass_cuda(x, tb, inverse, pass_, d, rank)
+    if x.device.type != "cpu":
+        raise ValueError(f"no NTT for tensors on {x.device}")
+    return ntt_pass_plain(x, tb, inverse, pass_, d, rank)
 
 
 def ntt_naive_host(a, p: int, psi: int):

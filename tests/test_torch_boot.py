@@ -15,6 +15,7 @@ are held bit for bit in tests/test_torch_boot_eval.py."""
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 
@@ -78,14 +79,32 @@ def test_dft_factorization_matches_reference(n):
 # the key set from one DRBG seed
 # ---------------------------------------------------------------------------
 
+def keys_compiled(fn, *args, **kw):
+    """fn(*args, **kw) of the reference with its key generation
+    (ckks_boot.leveled_boot_keys, which the key-set builders call) compiled
+    as one program: the keys are exact integers and the DRBG draws at trace
+    time in the eager order, so they are the eager run's keys, at a fraction
+    of the cost of compiling its ops one at a time on the CPU."""
+    eager = jboot.leveled_boot_keys
+
+    def compiled(ctx, key, sk, pieces, aux_lvl, **k):
+        return jax.jit(lambda s: eager(ctx, key, s, pieces, aux_lvl, **k))(sk)
+
+    jboot.leveled_boot_keys = compiled
+    try:
+        return fn(*args, **kw)
+    finally:
+        jboot.leveled_boot_keys = eager
+
+
 @pytest.fixture(scope="module")
 def drbg_keys():
     jctx = jckks.make_context(N, Q_BITS, **CTX_KW)
     tctx = tckks.make_context(N, Q_BITS, device="cpu", **CTX_KW)
     jsk = jckks.keygen_secret(jctx, jrng.new_drbg(b"s" * 32), hamming_weight=16)
     tsk = tckks.keygen_secret(tctx, trng.new_drbg(b"s" * 32), hamming_weight=16)
-    jkeys = jboot.generate_bootstrap_keys(jctx, jrng.new_drbg(b"k" * 32), jsk,
-                                          jboot.BootConfig(**CFG))
+    jkeys = keys_compiled(jboot.generate_bootstrap_keys, jctx, jrng.new_drbg(b"k" * 32), jsk,
+                          jboot.BootConfig(**CFG))
     tkeys = tboot.generate_bootstrap_keys(tctx, trng.new_drbg(b"k" * 32), tsk,
                                           tboot.BootConfig(**CFG))
     return tctx, jkeys, tkeys

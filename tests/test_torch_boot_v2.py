@@ -13,6 +13,7 @@ encoder on one side and the df64 one on the other, so they are held within
 ±3 (see tests/test_torch_boot.py).  The evaluation is held bit for bit in
 tests/test_torch_boot_v2_eval.py."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -30,8 +31,8 @@ from heongpu_tpu_torch.models import ckks_boot_ext as text  # noqa: E402
 from heongpu_tpu_torch.ops import modmath as tm  # noqa: E402
 from heongpu_tpu_torch.ops import ntt as tntt  # noqa: E402
 from heongpu_tpu_torch.ops import polyops as tpoly  # noqa: E402
-from heongpu_tpu_torch.utils import errors as terrors  # noqa: E402
 from heongpu_tpu_torch.utils import rng as trng  # noqa: E402
+from test_torch_boot import keys_compiled  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -63,8 +64,8 @@ def drbg_keys():
     tsk = tckks.keygen_secret(tctx, trng.new_drbg(b"s" * 32))
     out = {}
     for name, kw in (("sparse", dict(sparse_hw=16)), ("less_key", dict(less_key_mode=True))):
-        jk = jext.generate_bootstrap_keys_v2(jctx, jrng.new_drbg(b"k" * 32), jsk,
-                                             jext.BootConfigV2(**CFG), **kw)
+        jk = keys_compiled(jext.generate_bootstrap_keys_v2, jctx, jrng.new_drbg(b"k" * 32), jsk,
+                           jext.BootConfigV2(**CFG), **kw)
         tk = text.generate_bootstrap_keys_v2(tctx, trng.new_drbg(b"k" * 32), tsk,
                                              text.BootConfigV2(**CFG), **kw)
         out[name] = (jk, tk)
@@ -159,12 +160,33 @@ def test_options_not_ported_raise():
                                       for k in keys.gk.keys.values())
     seeds = [keys.rk.a_seed] + [k.a_seed for k in keys.gk.keys.values()]
     assert len({s % 2 ** 32 for s in seeds}) == len(seeds)
-    with pytest.raises(terrors.ParameterError, match="mesh"):
-        text.generate_bootstrap_keys_v2(ctx, trng.new_generator(2, "cpu"), sk, cfg, limb_align=2)
-    with pytest.raises(terrors.ParameterError, match="mesh"):
-        tboot.generate_bootstrap_keys(ctx, trng.new_generator(2, "cpu"), sk,
-                                      tboot.BootConfig(taylor_degree=3, exp_squarings=1),
-                                      limb_align=2)
+    # limb_align=2 is ported: each key is the plain run's key at the level that align
+    # picks (the deepest at or above its own whose extent 2 divides; level 0 stays)
+    p = len(ctx.p_primes)
+
+    def align(lv):
+        while lv > 0 and (ctx.active(lv) + p) % 2:
+            lv -= 1
+        return lv
+
+    aligned = text.generate_bootstrap_keys_v2(ctx, trng.new_generator(2, "cpu"), sk, cfg,
+                                              limb_align=2)
+    boot = tboot.generate_bootstrap_keys(ctx, trng.new_generator(2, "cpu"), sk,
+                                         tboot.BootConfig(taylor_degree=3, exp_squarings=1),
+                                         limb_align=2)
+    for keys, aux in ((aligned, len(aligned.ctos_pieces)),
+                      (boot, len(boot.ctos_pieces) * boot.cfg.piece_depth)):
+        pieces = [dataclasses.replace(pc, level=align(pc.level))
+                  for pc in keys.ctos_pieces + keys.stoc_pieces]
+        gk, rk = tboot.leveled_boot_keys(ctx, trng.new_generator(2, "cpu"), sk, pieces,
+                                         aux_lvl=align(aux))
+        assert set(gk.keys) == set(keys.gk.keys)
+        for elt, kk in keys.gk.keys.items():
+            assert torch.equal(kk.k0, gk.keys[elt].k0) and torch.equal(kk.k1, gk.keys[elt].k1)
+            ext = kk.k0.shape[1]
+            assert ext % 2 == 0 or ext == ctx.active(0) + p, (elt, ext)
+        assert torch.equal(keys.rk.k0, rk.k0) and torch.equal(keys.rk.k1, rk.k1)
+        assert any(align(pc.level) != pc.level for pc in keys.ctos_pieces + keys.stoc_pieces)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from heongpu_tpu.models import ckks as jckks  # noqa: E402
@@ -260,7 +261,8 @@ def drbg_pair():
     """Secret keys from one DRBG seed on both sides, and both contexts."""
     jctx = jckks.make_context(N, Q_BITS, ks_type="II", alpha=2, p_count=3)
     tctx = tckks.make_context(N, Q_BITS, ks_type="II", alpha=2, p_count=3, device="cpu")
-    jsk = jckks.keygen_secret(jctx, jrng.new_drbg(b"e" * 32), hamming_weight=32)
+    jsk = jax.jit(lambda: jckks.keygen_secret(jctx, jrng.new_drbg(b"e" * 32),
+                                              hamming_weight=32))()   # one program: exact
     tsk = tckks.keygen_secret(tctx, trng.new_drbg(b"e" * 32), hamming_weight=32)
     np.testing.assert_array_equal(_np(tsk.s_ntt_mont_qp), np.asarray(jsk.s_ntt_mont_qp))
     return jctx, tctx, jsk, tsk
@@ -271,7 +273,8 @@ def test_keygen_relin_at_level_and_fold_in(drbg_pair):
     jd, td = jrng.new_drbg(b"r" * 32), trng.new_drbg(b"r" * 32)
     assert trng.fold_in(td, 7) is td and jrng.fold_in(jd, 7) is jd
     for level in (2,):
-        jrk = jckks.keygen_relin(jctx, jrng.fold_in(jd, 1), jsk, level=level)
+        jrk = jax.jit(lambda s: jckks.keygen_relin(jctx, jrng.fold_in(jd, 1), s,
+                                                   level=level))(jsk)   # one program: exact
         trk = tckks.keygen_relin(tctx, trng.fold_in(td, 1), tsk, level=level)
         assert trk.k0.shape == (-(-tctx.active(level) // 2), tctx.active(level) + 3, N)
         np.testing.assert_array_equal(_np(trk.k0), np.asarray(jrk.k0))

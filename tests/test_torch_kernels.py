@@ -56,6 +56,41 @@ def test_ntt_kernel_matches_plain(dev, n, limbs, batch):
     _equal(i, x)
 
 
+@pytest.mark.parametrize("n,d", [(256, 1), (8192, 2), (16384, 4), (32768, 8), (65536, 2),
+                                 (65536, 16)])
+def test_ntt_split_passes_match_plain_and_whole(dev, n, d):
+    """K1's split entry: each pass on every rank's block equals its plain
+    version, and with the exchange done by slicing the whole transform equals
+    K1's, both ways (2 polys of 3 limbs)."""
+    primes = tnt.generate_ntt_primes(29, 3, n)
+    tb = tntt.build_ntt_tables(primes, n, device=dev)
+    x = _residues(np.random.default_rng(n + d), primes * 2, (6, n), dev).view(2, 3, n)
+    y = tntt.ntt_fwd(x, tb)
+    for inverse, src, want in ((False, x, y), (True, y, x)):
+        a, b = (tb.n2, tb.n1) if inverse else (tb.n1, tb.n2)
+        blocks = src.view(2, 3, a, b)
+        w = b // d
+        sends = []
+        for r in range(d):
+            blk = blocks[..., r * w:(r + 1) * w].contiguous()
+            sends.append(tntt.ntt_pass_cuda(blk, tb, inverse, 1, d, r))
+            _equal(sends[-1], tntt.ntt_pass_plain(blk, tb, inverse, 1, d, r))
+        outs = []
+        for r in range(d):
+            recv = torch.stack([s_[r] for s_ in sends])
+            outs.append(tntt.ntt_pass_cuda(recv, tb, inverse, 2, d, r))
+            _equal(outs[-1], tntt.ntt_pass_plain(recv, tb, inverse, 2, d, r))
+        _equal(torch.cat(outs, dim=-1).reshape(2, 3, n), want)
+
+
+def test_ntt_split_pass_rejects_partial_tiles(dev):
+    for n, d in ((4096, 2), (8192, 4), (16384, 8), (32768, 16)):
+        tb = tntt.build_ntt_tables(tnt.generate_ntt_primes(29, 1, n), n, device=dev)
+        x = torch.zeros((1, tb.n1, tb.n2 // d), dtype=tm.I32, device=dev)
+        with pytest.raises(ValueError, match="whole tiles"):
+            tntt.ntt_pass_cuda(x, tb, False, 1, d, 0)
+
+
 def test_ntt_kernel_leveled_tables(dev):
     n = 4096
     primes = tnt.generate_ntt_primes(29, 6, n)

@@ -10,6 +10,7 @@ the reference's Threefry keys and ciphertexts carried over with `interop`.
 Every residue must be bit-identical.  Also the host copies the BFV slice
 needs (params, nt, errors)."""
 
+import jax
 import numpy as np
 import pytest
 
@@ -150,10 +151,14 @@ def test_default_context_is_method_one():
         "I", 1, ())
     assert tctx.q_primes == jctx.q_primes and tctx.p_primes == jctx.p_primes
     assert tckks._groups(tctx) is None and jckks._groups(jctx) is None
-    jsk = jckks.keygen_secret(jctx, jrng.new_drbg(b"m" * 32))
+    def reference():
+        sk = jckks.keygen_secret(jctx, jrng.new_drbg(b"m" * 32))
+        return sk, jckks.keygen_relin(jctx, jrng.new_drbg(b"r" * 32), sk)
+
+    # the reference's keygens compiled as one program (the DRBG draws at trace time)
+    jsk, jrk = jax.jit(reference)()
     tsk = tckks.keygen_secret(tctx, trng.new_drbg(b"m" * 32))
     _eq(tsk.s_ntt_mont_qp, jsk.s_ntt_mont_qp)
-    jrk = jckks.keygen_relin(jctx, jrng.new_drbg(b"r" * 32), jsk)
     trk = tckks.keygen_relin(tctx, trng.new_drbg(b"r" * 32), tsk)
     assert tuple(trk.k0.shape) == np.asarray(jrk.k0).shape == (4, 5, N)   # one digit per Q prime
     _eq(trk.k0, jrk.k0)
@@ -185,14 +190,18 @@ def _ct(c):
 @pytest.fixture(scope="module")
 def method1():
     jctx = jckks.make_context(N, Q_BITS)
-    sk = jckks.keygen_secret(jctx, jrng.new_key(41))
-    pk = jckks.keygen_public(jctx, jrng.new_key(42), sk)
-    rk = jckks.keygen_relin(jctx, jrng.new_key(43), sk)
-    gk = jckks.keygen_galois(jctx, jrng.new_key(44), sk, steps=[1, 2])
-    gki = jckks.keygen_galois(jctx, jrng.new_key(45), sk, steps=[1], inv_form=True)
-    sk2 = jckks.keygen_secret(jctx, jrng.new_key(46))
-    swk = jckks.keygen_switch(jctx, jrng.new_key(47), sk, sk2)
-    ct = jckks.encrypt(jctx, pk, jckks.encode_host(jctx, Z), jrng.new_key(48))
+
+    def keys():
+        sk = jckks.keygen_secret(jctx, jrng.new_key(41))
+        pk = jckks.keygen_public(jctx, jrng.new_key(42), sk)
+        return (jckks.keygen_relin(jctx, jrng.new_key(43), sk),
+                jckks.keygen_galois(jctx, jrng.new_key(44), sk, steps=[1, 2]),
+                jckks.keygen_galois(jctx, jrng.new_key(45), sk, steps=[1], inv_form=True),
+                jckks.keygen_switch(jctx, jrng.new_key(47), sk,
+                                    jckks.keygen_secret(jctx, jrng.new_key(46))),
+                jckks.encrypt(jctx, pk, jckks.encode_host(jctx, Z), jrng.new_key(48)))
+
+    rk, gk, gki, swk, ct = jax.jit(keys)()   # one program: exact, the eager ops' keys
     ks = lambda k: interop.ks_key_from_numpy(np.asarray(k.k0), np.asarray(k.k1), device="cpu")
     j = dict(ctx=jctx, rk=rk, gk=gk, gki=gki, swk=swk, ct=ct)
     t = dict(ctx=tckks.make_context(N, Q_BITS, device="cpu"), rk=ks(rk), gk=_gk(gk),
@@ -209,24 +218,35 @@ def _same(got, want):
 def test_ckks_method1_ops(method1, level):
     j, t = method1
     jc, tc = j["ctx"], t["ctx"]
-    ja = jckks.mod_drop(jc, j["ct"], level) if level else j["ct"]
-    ta = tckks.mod_drop(tc, t["ct"], level) if level else t["ct"]
-    _same(tckks.relinearize(tc, tckks.multiply(tc, ta, ta), t["rk"]),
-          jckks.relinearize(jc, jckks.multiply(jc, ja, ja), j["rk"]))
-    for step in (1, 3):
-        _same(tckks.rotate(tc, ta, t["gk"], step), jckks.rotate(jc, ja, j["gk"], step))
-    _same(tckks.conjugate(tc, ta, t["gk"]), jckks.conjugate(jc, ja, j["gk"]))
-    _same(tckks.switch_key(tc, ta, t["swk"]), jckks.switch_key(jc, ja, j["swk"]))
-    d, d_ref = tckks.hoist(tc, ta), jckks.hoist(jc, ja)
-    _eq(d, d_ref)
     g1 = tpoly.steps_to_galois_elt(1, N)
-    for step in (1, 2):
-        g = tpoly.steps_to_galois_elt(step, N)
-        _same(tckks.rotate_hoisted(tc, ta, d, t["gk"].keys[g]),
-              jckks.rotate_hoisted(jc, ja, d_ref, j["gk"].keys[g]))
-    _same(tckks.rotate_hoisted(tc, ta, d, t["gki"].keys[g1]),
-          jckks.rotate_hoisted(jc, ja, d_ref, j["gki"].keys[g1]))
-    _same(tckks.rotate(tc, ta, t["gki"], 1), jckks.rotate(jc, ja, j["gki"], 1))
+    gs = [tpoly.steps_to_galois_elt(step, N) for step in (1, 2)]
+
+    def reference(ct, rk, gk, gki, swk):
+        """The reference's side, compiled as one program (exact: its eager
+        ops' residues)."""
+        ja = jckks.mod_drop(jc, ct, level) if level else ct
+        d_ref = jckks.hoist(jc, ja)
+        return dict(relin=jckks.relinearize(jc, jckks.multiply(jc, ja, ja), rk),
+                    rotate=[jckks.rotate(jc, ja, gk, step) for step in (1, 3)],
+                    conj=jckks.conjugate(jc, ja, gk), switch=jckks.switch_key(jc, ja, swk),
+                    hoist=d_ref,
+                    hoisted=[jckks.rotate_hoisted(jc, ja, d_ref, gk.keys[g]) for g in gs],
+                    hoisted_inv=jckks.rotate_hoisted(jc, ja, d_ref, gki.keys[g1]),
+                    rotate_inv=jckks.rotate(jc, ja, gki, 1))
+
+    ref = jax.jit(reference)(j["ct"], j["rk"], j["gk"], j["gki"], j["swk"])
+    ta = tckks.mod_drop(tc, t["ct"], level) if level else t["ct"]
+    _same(tckks.relinearize(tc, tckks.multiply(tc, ta, ta), t["rk"]), ref["relin"])
+    for step, want in zip((1, 3), ref["rotate"]):
+        _same(tckks.rotate(tc, ta, t["gk"], step), want)
+    _same(tckks.conjugate(tc, ta, t["gk"]), ref["conj"])
+    _same(tckks.switch_key(tc, ta, t["swk"]), ref["switch"])
+    d = tckks.hoist(tc, ta)
+    _eq(d, ref["hoist"])
+    for g, want in zip(gs, ref["hoisted"]):
+        _same(tckks.rotate_hoisted(tc, ta, d, t["gk"].keys[g]), want)
+    _same(tckks.rotate_hoisted(tc, ta, d, t["gki"].keys[g1]), ref["hoisted_inv"])
+    _same(tckks.rotate(tc, ta, t["gki"], 1), ref["rotate_inv"])
 
 
 def test_key_from_a_deeper_level_raises(method1):

@@ -77,23 +77,37 @@ int host_launch(int inverse, const Params& P, int rows, cudaStream_t) {
   static_assert(3 * Y::kTile + 2 * (1 << L2) <= (1 << 16), "shared memory stand-in too small");
   const int ga = rows << Y::kLogTilesA, gb = rows << Y::kLogTilesB;
   if (!inverse) {
-    run_grid(ga, [&] { ntt_fwd1<L1, L2>(P); });
-    run_grid(gb, [&] { ntt_fwd2<L1, L2>(P); });
+    run_grid(ga, [&] { ntt_fwd1<L1, L2, false>(P); });
+    run_grid(gb, [&] { ntt_fwd2<L1, L2, false>(P); });
   } else {
-    run_grid(gb, [&] { ntt_inv1<L1, L2>(P); });
-    run_grid(ga, [&] { ntt_inv2<L1, L2>(P); });
+    run_grid(gb, [&] { ntt_inv1<L1, L2, false>(P); });
+    run_grid(ga, [&] { ntt_inv2<L1, L2, false>(P); });
   }
+  return 0;
+}
+
+template <int L1, int L2>
+int host_launch_pass(int inverse, int pass, const Params& P, int rows, cudaStream_t) {
+  using Y = Tiles<L1, L2>;
+  if (!whole_tiles<L1, L2>(P.ld)) return cudaErrorInvalidValue;
+  const int ga = rows << (Y::kLogTilesA - P.ld), gb = rows << (Y::kLogTilesB - P.ld);
+  if (!inverse && pass == 1) run_grid(ga, [&] { ntt_fwd1<L1, L2, true>(P); });
+  else if (!inverse) run_grid(gb, [&] { ntt_fwd2<L1, L2, true>(P); });
+  else if (pass == 1) run_grid(gb, [&] { ntt_inv1<L1, L2, true>(P); });
+  else run_grid(ga, [&] { ntt_inv2<L1, L2, true>(P); });
   return 0;
 }
 """
 
 
 def host_source(src: str) -> str:
-    """ntt.cu's text with its two launches replaced by host_launch."""
+    """ntt.cu's text with its launches replaced by host_launch and
+    host_launch_pass."""
     launch = src.index("template <int L1, int L2>\nint launch(")
     ns_end = src.index("}  // namespace")
     entry = src.index('extern "C" int hf_ntt')
-    tail = src[entry:].replace("hf_ntt", "host_ntt").replace("launch<", "host_launch<")
+    tail = (src[entry:].replace("hf_ntt", "host_ntt").replace("launch<", "host_launch<")
+            .replace("launch_pass<", "host_launch_pass<"))
     return HARNESS + src[:launch] + LAUNCH + src[ns_end:entry] + tail
 
 
@@ -117,8 +131,10 @@ def host_lib(tmp_path_factory):
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
-    lib.host_ntt.argtypes = build.SIGNATURES["hf_ntt"]
-    lib.host_ntt.restype = ctypes.c_int
+    for name in ("ntt", "ntt_pass"):
+        fn = getattr(lib, f"host_{name}")
+        fn.argtypes = build.SIGNATURES[f"hf_{name}"]
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -7,11 +7,14 @@ alpha 4 and p_count 6, the configuration chip_smoke.py runs at N=2^16.  The
 input ciphertext and the relinearization key are the reference's (Threefry
 keys), carried into the port by `interop`; encode_const is exact, so every
 power and every evaluated polynomial must equal the reference's residues,
-level and scale.  The coefficient helpers are numpy on both sides and must
-give equal floats."""
+level and scale; the reference's gen_powers and eval_poly_bsgs run compiled
+as one program each (exact, so with the eager run's residues, at a fraction
+of the cost of compiling their ops one at a time on the CPU).  The
+coefficient helpers are numpy on both sides and must give equal floats."""
 
 import math
 
+import jax
 import numpy as np
 import pytest
 
@@ -86,7 +89,7 @@ def sides():
 def test_gen_powers_match_reference(sides):
     jctx, tctx, jct, tct, rk, trk, _, _ = sides
     got = tpe.gen_powers(tctx, tct, 7, trk)
-    want = jpe.gen_powers(jctx, jct, 7, rk)
+    want = jax.jit(lambda c: jpe.gen_powers(jctx, c, 7, rk))(jct)
     assert sorted(got) == sorted(want) == list(range(1, 8))
     for j in want:
         _same(got[j], want[j])
@@ -105,7 +108,7 @@ def test_eval_poly_bsgs_matches_reference(sides, poly):
         coeffs = ODD()
         want_values = np.sin(2 * z)
     got = tpe.eval_poly_bsgs(tctx, tct, coeffs, trk)
-    _same(got, jpe.eval_poly_bsgs(jctx, jct, coeffs, rk))
+    _same(got, jax.jit(lambda c: jpe.eval_poly_bsgs(jctx, c, coeffs, rk))(jct))
     assert got.level <= 6  # log depth, not Horner's
     dec = tckks.decode(tctx, tckks.decrypt(tctx, tsk, got)).real
     assert np.abs(dec - want_values).max() < 1e-4

@@ -6,6 +6,7 @@ the float32 Box-Muller scale-and-round of the gaussian, the argsort-based
 fixed-hamming-weight secret), so samples, keys and ciphertexts must be
 bit-identical.  The torch.Generator source is checked for shape and range."""
 
+import jax
 import numpy as np
 import pytest
 
@@ -72,19 +73,22 @@ def test_generator_source_shapes_and_ranges():
 @pytest.fixture(scope="module")
 def keysets():
     """Keys and one ciphertext at N=256, [29]*4, Method II alpha=2, from one
-    DRBG seed in each package (the reference's DRBG path runs eagerly)."""
+    DRBG seed in each package (the reference's DRBG path compiled as one
+    program: the draws at trace time, in the eager order)."""
     jctx = jckks.make_context(256, [29] * 4, ks_type="II", alpha=2)
     tctx = tckks.make_context(256, [29] * 4, ks_type="II", alpha=2, device="cpu")
-    out = {}
-    for name, m, ctx, d in (("jax", jckks, jctx, jrng.new_drbg(SEED, b"keys")),
-                            ("torch", tckks, tctx, trng.new_drbg(SEED, b"keys"))):
+
+    def chain(m, ctx, d):
         sk = m.keygen_secret(ctx, d)
         pk = m.keygen_public(ctx, d, sk)
         rk = m.keygen_relin(ctx, d, sk)
         pt = m.encode_host(ctx, np.linspace(-1, 1, 128))
-        ct = m.encrypt(ctx, pk, pt, d)
-        out[name] = dict(sk=sk, pk=pk, rk=rk, pt=pt, ct=ct, ctx=ctx)
-    return out
+        return dict(sk=sk, pk=pk, rk=rk, pt=pt, ct=m.encrypt(ctx, pk, pt, d), ctx=ctx)
+
+    jd = jrng.new_drbg(SEED, b"keys")
+    ref = jax.jit(lambda: {k: v for k, v in chain(jckks, jctx, jd).items() if k != "ctx"})()
+    return {"jax": dict(ref, ctx=jctx),
+            "torch": chain(tckks, tctx, trng.new_drbg(SEED, b"keys"))}
 
 
 def test_keygen_secret_matches(keysets):

@@ -6,11 +6,15 @@ At N=1024, [29]*6, Method II alpha=2 (p_count 2, and 3 for the inverse-form
 keys), the reference's Threefry keys and ciphertexts are carried over with
 `interop` and every op's residues must be bit-identical at levels 0 and 1.
 Galois keys from one DRBG seed must equal the reference's.  A port-own run
-(torch.Generator keys) must decode within 1e-3."""
+(torch.Generator keys) must decode within 1e-3.  The reference's keygens and
+each level's rotation checks run compiled as one program (exact, so the
+residues of its ops run one at a time, at a fraction of the cost of
+compiling each of them on the CPU)."""
 
 import dataclasses
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +30,8 @@ from heongpu_tpu_torch.models import ckks as tckks  # noqa: E402
 from heongpu_tpu_torch.models import tfhe as ttfhe  # noqa: E402
 from heongpu_tpu_torch.ops import modmath as tm  # noqa: E402
 from heongpu_tpu_torch.ops import polyops as tpoly  # noqa: E402
+from heongpu_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+from heongpu_tpu_torch.parallel import multihost as tmh  # noqa: E402
 from heongpu_tpu_torch.utils import errors as terrors  # noqa: E402
 from heongpu_tpu_torch.utils import rng as trng  # noqa: E402
 
@@ -96,10 +102,15 @@ def test_polyops_match(n):
 
 def _both_sides(p_count, steps, inv_form, seed):
     jctx = jckks.make_context(N, Q_BITS, ks_type="II", alpha=ALPHA, p_count=p_count)
-    sk = jckks.keygen_secret(jctx, jrng.new_key(seed))
-    pk = jckks.keygen_public(jctx, jrng.new_key(seed + 1), sk)
-    gk = jckks.keygen_galois(jctx, jrng.new_key(seed + 2), sk, steps=steps, inv_form=inv_form)
-    ct = jckks.encrypt(jctx, pk, jckks.encode_host(jctx, Z), jrng.new_key(seed + 3))
+
+    def keys():
+        sk = jckks.keygen_secret(jctx, jrng.new_key(seed))
+        pk = jckks.keygen_public(jctx, jrng.new_key(seed + 1), sk)
+        gk = jckks.keygen_galois(jctx, jrng.new_key(seed + 2), sk, steps=steps,
+                                 inv_form=inv_form)
+        return sk, gk, jckks.encrypt(jctx, pk, jckks.encode_host(jctx, Z), jrng.new_key(seed + 3))
+
+    sk, gk, ct = jax.jit(keys)()   # one program: exact, the eager ops' keys
     tctx = tckks.make_context(N, Q_BITS, ks_type="II", alpha=ALPHA, p_count=p_count,
                               device="cpu")
     return dict(ctx=jctx, sk=sk, gk=gk, ct=ct), dict(ctx=tctx, gk=_gk(gk), ct=_ct(ct))
@@ -109,9 +120,12 @@ def _both_sides(p_count, steps, inv_form, seed):
 def plain_keys():
     """Normal Galois keys (steps 1, 2 and conj) and a switching key."""
     j, t = _both_sides(ALPHA, [1, 2], False, 11)
-    sk2 = jckks.keygen_secret(j["ctx"], jrng.new_key(20))
-    j["swk"] = jckks.keygen_switch(j["ctx"], jrng.new_key(21), j["sk"], sk2)
-    j["sk2"] = sk2
+
+    def switch(sk):
+        sk2 = jckks.keygen_secret(j["ctx"], jrng.new_key(20))
+        return sk2, jckks.keygen_switch(j["ctx"], jrng.new_key(21), sk, sk2)
+
+    j["sk2"], j["swk"] = jax.jit(switch)(j["sk"])
     t["swk"] = interop.ks_key_from_numpy(np.asarray(j["swk"].k0), np.asarray(j["swk"].k1),
                                          device="cpu")
     return j, t
@@ -132,39 +146,59 @@ def _same(got, want):
     _eq(got.c, want.c)
 
 
-def _check_rotations(j, t, level, steps, hoisted):
-    jc, tc = _at(j, jckks, level), _at(t, tckks, level)
+def _reference_rotations(j, level, steps, hoisted, swk=None):
+    """The reference's side of the rotation checks at `level`, compiled as one
+    program (exact: the residues of its ops run one at a time, at a fraction
+    of the cost of compiling each of them on the CPU)."""
+    ctx = j["ctx"]
+
+    def run(ct, gk, swk):
+        jc = ct if level == 0 else jckks.mod_drop(ctx, ct, level)
+        jd = jckks.hoist(ctx, jc)
+        pc0 = jckks.p_scale_to_qtilde(ctx, jc.c[0], level)
+        keys = [gk.keys[tpoly.steps_to_galois_elt(s, N)] for s in hoisted]
+        out = dict(apply=jckks.apply_galois(ctx, jc, gk.keys[tpoly.steps_to_galois_elt(1, N)]),
+                   rotate=[jckks.rotate(ctx, jc, gk, s) for s in steps],
+                   conj=jckks.conjugate(ctx, jc, gk), hoist=jd, pc0=pc0,
+                   hoisted=[jckks.rotate_hoisted(ctx, jc, jd, k) for k in keys],
+                   qtilde=[jckks.rotate_hoisted_qtilde(ctx, jd, k, pc0, level) for k in keys])
+        if swk is not None:
+            out.update(switch=jckks.switch_key(ctx, jc, swk),
+                       power_of_x=[jckks.multiply_power_of_x(ctx, jc, k) for k in (N // 2, 3, -1)])
+        return out
+
+    return jax.jit(run)(j["ct"], j["gk"], swk)
+
+
+def _check_rotations(j, t, level, steps, hoisted, swk=None):
+    """The port's rotations against the reference's; returns the reference's
+    results (_reference_rotations) and the port's ciphertext at `level`."""
+    ref = _reference_rotations(j, level, steps, hoisted, swk)
+    tc = _at(t, tckks, level)
     g = tpoly.steps_to_galois_elt(1, N)
-    _same(tckks.apply_galois(t["ctx"], tc, t["gk"].keys[g]),
-          jckks.apply_galois(j["ctx"], jc, j["gk"].keys[g]))
-    for step in steps:
-        _same(tckks.rotate(t["ctx"], tc, t["gk"], step), jckks.rotate(j["ctx"], jc, j["gk"], step))
-    _same(tckks.conjugate(t["ctx"], tc, t["gk"]), jckks.conjugate(j["ctx"], jc, j["gk"]))
-    jd, td = jckks.hoist(j["ctx"], jc), tckks.hoist(t["ctx"], tc)
-    _eq(td, jd)
+    _same(tckks.apply_galois(t["ctx"], tc, t["gk"].keys[g]), ref["apply"])
+    for step, want in zip(steps, ref["rotate"]):
+        _same(tckks.rotate(t["ctx"], tc, t["gk"], step), want)
+    _same(tckks.conjugate(t["ctx"], tc, t["gk"]), ref["conj"])
+    td = tckks.hoist(t["ctx"], tc)
+    _eq(td, ref["hoist"])
     pc0 = tckks.p_scale_to_qtilde(t["ctx"], tc.c[0], level)
-    _eq(pc0, jckks.p_scale_to_qtilde(j["ctx"], jc.c[0], level))
-    for step in hoisted:
-        e = tpoly.steps_to_galois_elt(step, N)
-        tk, jk = t["gk"].keys[e], j["gk"].keys[e]
-        _same(tckks.rotate_hoisted(t["ctx"], tc, td, tk),
-              jckks.rotate_hoisted(j["ctx"], jc, jd, jk))
-        for got, want in zip(
-                tckks.rotate_hoisted_qtilde(t["ctx"], td, tk, pc0, level),
-                jckks.rotate_hoisted_qtilde(j["ctx"], jd, jk, jckks.p_scale_to_qtilde(
-                    j["ctx"], jc.c[0], level), level)):
-            _eq(got, want)
+    _eq(pc0, ref["pc0"])
+    for step, want, want_qt in zip(hoisted, ref["hoisted"], ref["qtilde"]):
+        tk = t["gk"].keys[tpoly.steps_to_galois_elt(step, N)]
+        _same(tckks.rotate_hoisted(t["ctx"], tc, td, tk), want)
+        for got, w in zip(tckks.rotate_hoisted_qtilde(t["ctx"], td, tk, pc0, level), want_qt):
+            _eq(got, w)
+    return ref, tc
 
 
 @pytest.mark.parametrize("level", [0, 1])
 def test_rotations_match_reference(plain_keys, level):
     j, t = plain_keys
-    _check_rotations(j, t, level, (1, 3, 2), (1, 2))
-    jc, tc = _at(j, jckks, level), _at(t, tckks, level)
-    _same(tckks.switch_key(t["ctx"], tc, t["swk"]), jckks.switch_key(j["ctx"], jc, j["swk"]))
-    for k in (N // 2, 3, -1):
-        _same(tckks.multiply_power_of_x(t["ctx"], tc, k),
-              jckks.multiply_power_of_x(j["ctx"], jc, k))
+    ref, tc = _check_rotations(j, t, level, (1, 3, 2), (1, 2), swk=j["swk"])
+    _same(tckks.switch_key(t["ctx"], tc, t["swk"]), ref["switch"])
+    for k, want in zip((N // 2, 3, -1), ref["power_of_x"]):
+        _same(tckks.multiply_power_of_x(t["ctx"], tc, k), want)
 
 
 @pytest.mark.parametrize("level", [0, 1])
@@ -209,6 +243,12 @@ def test_switch_key_and_power_of_x_decode(plain_keys):
 # DRBG keygen, the port's own run, misuse and the device defaults
 # ---------------------------------------------------------------------------
 
+def _compiled_galois(ctx, d, sk, **kw):
+    """The reference's keygen_galois compiled as one program; the DRBG draws
+    at trace time, in the eager order."""
+    return jax.jit(lambda s: jckks.keygen_galois(ctx, d, s, **kw))(sk)
+
+
 def test_keygen_galois_drbg_matches():
     seed = bytes(range(32))
     jctx = jckks.make_context(256, [29] * 4, ks_type="II", alpha=2)
@@ -217,9 +257,9 @@ def test_keygen_galois_drbg_matches():
     for name, m, ctx, d in (("jax", jckks, jctx, jrng.new_drbg(seed, b"galois")),
                             ("torch", tckks, tctx, trng.new_drbg(seed, b"galois"))):
         sk = m.keygen_secret(ctx, d)
-        out[name] = (m.keygen_galois(ctx, d, sk, steps=[1, 1]),
-                     m.keygen_galois(ctx, d, sk, steps=[3], include_conj=False, level=1,
-                                     inv_form=True))
+        galois = tckks.keygen_galois if m is tckks else _compiled_galois
+        out[name] = (galois(ctx, d, sk, steps=[1, 1]),
+                     galois(ctx, d, sk, steps=[3], include_conj=False, level=1, inv_form=True))
     for jg, tg in zip(out["jax"], out["torch"]):
         assert set(tg.keys) == set(jg.keys)
         for e, k in jg.keys.items():
@@ -262,6 +302,8 @@ def test_entry_points_default_to_the_card():
     fns = [tckks.make_context, ttfhe.make_context, ttfhe.keygen_secret, trng.new_generator,
            tbgv.make_context, trng.new_key]
     fns += [getattr(interop, f) for f in dir(interop) if f.endswith("_from_numpy")]
+    fns += [tmesh.make_mesh, tmh.init_process, tmh.global_mesh, tmh.party_mesh,
+            tmh.weak_scaling_efficiency]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     # the BGV keygens draw on their context's device, and a Threefry key's draws on

@@ -72,14 +72,17 @@ def ckks1():
     jc = jckks.make_context(N, Q_BITS)
     tc = tckks.make_context(N, Q_BITS, device="cpu")
     jd, td = _drbg_pair(b"k")
-    out = {}
-    for name, mod, ctx, d in (("j", jckks, jc, jd), ("t", tckks, tc, td)):
+
+    def keys(mod, ctx, d):
         sk = mod.keygen_secret(ctx, d)
-        out[name] = dict(ctx=ctx, sk=sk, pk=mod.keygen_public(ctx, d, sk, a_seed=11),
-                         rk=mod.keygen_relin(ctx, d, sk, a_seed=2 ** 40 + 12),
-                         gk=mod.keygen_galois(ctx, d, sk, steps=[1, -1], a_seed=13,
-                                              store_a=False))
-    return out["j"], out["t"]
+        return dict(sk=sk, pk=mod.keygen_public(ctx, d, sk, a_seed=11),
+                    rk=mod.keygen_relin(ctx, d, sk, a_seed=2 ** 40 + 12),
+                    gk=mod.keygen_galois(ctx, d, sk, steps=[1, -1], a_seed=13, store_a=False))
+
+    # the reference's keygens compiled as one program (the DRBG draws at trace time,
+    # in the eager order; exact, so the eager run's keys)
+    return (dict(ctx=jc, **jax.jit(lambda: keys(jckks, jc, jd))()),
+            dict(ctx=tc, **keys(tckks, tc, td)))
 
 
 def test_ckks_method1_seeded_keys_match(ckks1):
@@ -153,8 +156,8 @@ def test_ckks_method2_seeded_relin_matches():
     jc = jckks.make_context(N, Q_BITS, ks_type="II", alpha=2)
     tc = tckks.make_context(N, Q_BITS, ks_type="II", alpha=2, device="cpu")
     jd, td = _drbg_pair(b"m")
-    jsk, tsk = jckks.keygen_secret(jc, jd), tckks.keygen_secret(tc, td)
-    jrk = jckks.keygen_relin(jc, jd, jsk, a_seed=31)
+    jrk = jax.jit(lambda: jckks.keygen_relin(jc, jd, jckks.keygen_secret(jc, jd), a_seed=31))()
+    tsk = tckks.keygen_secret(tc, td)
     trk = tckks.keygen_relin(tc, td, tsk, a_seed=31)
     _same_key(trk, jrk)
     assert tuple(trk.k0.shape) == (2, 6, N)
@@ -162,20 +165,22 @@ def test_ckks_method2_seeded_relin_matches():
     ct = tckks.encrypt(tc, tpk, tckks.encode(tc, np.linspace(-1, 1, N // 2)), td)
     jct = jckks.Ciphertext(jax.numpy.asarray(_np(ct.c)), ct.size, ct.level, ct.scale)
     _eq(tckks.relinearize(tc, tckks.multiply(tc, ct, ct), tring.strip_seeded(trk)).c,
-        jckks.relinearize(jc, jckks.multiply(jc, jct, jct), jring.strip_seeded(jrk)).c)
+        jax.jit(lambda c: jckks.relinearize(jc, jckks.multiply(jc, c, c),
+                                            jring.strip_seeded(jrk)).c)(jct))
 
 
 def test_bfv_seeded_keys_match():
     jc = jbfv.make_context(N, T, q_bits=Q_BITS)
     tc = tbfv.make_context(N, T, q_bits=Q_BITS, device="cpu")
     jd, td = _drbg_pair(b"b")
-    keys = {}
-    for name, mod, ctx, d in (("j", jbfv, jc, jd), ("t", tbfv, tc, td)):
+
+    def keys(mod, ctx, d):
         sk = mod.keygen_secret(ctx, d)
-        keys[name] = dict(sk=sk, pk=mod.keygen_public(ctx, d, sk, a_seed=41),
-                          rk=mod.keygen_relin(ctx, d, sk, a_seed=42),
-                          gk=mod.keygen_galois(ctx, d, sk, steps=[1], a_seed=43))
-    j, t = keys["j"], keys["t"]
+        return dict(sk=sk, pk=mod.keygen_public(ctx, d, sk, a_seed=41),
+                    rk=mod.keygen_relin(ctx, d, sk, a_seed=42),
+                    gk=mod.keygen_galois(ctx, d, sk, steps=[1], a_seed=43))
+
+    j, t = jax.jit(lambda: keys(jbfv, jc, jd))(), keys(tbfv, tc, td)
     _eq(t["pk"].pk1, j["pk"].pk1)
     _eq(t["pk"].pk0, j["pk"].pk0)
     _same_key(t["rk"], j["rk"])
@@ -185,7 +190,8 @@ def test_bfv_seeded_keys_match():
     ct = tbfv.encrypt(tc, t["pk"], tbfv.encode(tc, m), td)
     jct = jbfv.Ciphertext(jax.numpy.asarray(_np(ct.c)), ct.size, ct.in_ntt)
     rel = tbfv.relinearize(tc, tbfv.multiply(tc, ct, ct), tring.strip_seeded(t["rk"]))
-    _eq(rel.c, jbfv.relinearize(jc, jbfv.multiply(jc, jct, jct), jring.strip_seeded(j["rk"])).c)
+    _eq(rel.c, jax.jit(lambda c: jbfv.relinearize(jc, jbfv.multiply(jc, c, c),
+                                                  jring.strip_seeded(j["rk"])).c)(jct))
     np.testing.assert_array_equal(tbfv.decode(tc, tbfv.decrypt(tc, t["sk"], rel)),
                                   (m * m % T).astype(np.uint32))
 
@@ -206,14 +212,20 @@ def test_compressed_boot_keys_match(ckks1):
     jd, td = _drbg_pair(b"c")
     tgk, trk = tboot.leveled_boot_keys(tc, td, t["sk"], pieces, aux_lvl=1, compress_keys=True)
     seed0 = int(jd.bits64(1)[0] >> 33)
-    want = {}
-    for i, (lv, steps) in enumerate(((0, [1, 2, 4]), (1, [8]))):
-        want.update(jckks.keygen_galois(jc, jd, j["sk"], steps=steps, level=lv,
-                                        include_conj=False, a_seed=seed0 + ((i + 1) << 16),
-                                        store_a=False).keys)
-    want["conj"] = jckks.keygen_galois(jc, jd, j["sk"], steps=[], level=1, include_conj=True,
-                                       a_seed=seed0, store_a=False).keys["conj"]
-    jrk = jring.strip_seeded(jckks.keygen_relin(jc, jd, j["sk"], level=1, a_seed=seed0 + 1))
+
+    def reference(sk):
+        want = {}
+        for i, (lv, steps) in enumerate(((0, [1, 2, 4]), (1, [8]))):
+            want.update(jckks.keygen_galois(jc, jd, sk, steps=steps, level=lv,
+                                            include_conj=False, a_seed=seed0 + ((i + 1) << 16),
+                                            store_a=False).keys)
+        want["conj"] = jckks.keygen_galois(jc, jd, sk, steps=[], level=1, include_conj=True,
+                                           a_seed=seed0, store_a=False).keys["conj"]
+        return jring.GaloisKey(want), jckks.keygen_relin(jc, jd, sk, level=1, a_seed=seed0 + 1)
+
+    # the reference's keygens compiled as one program, in the eager draw order
+    jgk, jrk = jax.jit(reference)(j["sk"])
+    want, jrk = jgk.keys, jring.strip_seeded(jrk)
     assert set(tgk.keys) == set(want)
     for e, k in tgk.keys.items():
         _same_key(k, want[e])

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from heongpu_tpu.models import tfhe as jtfhe  # noqa: E402
@@ -59,8 +60,10 @@ def ref():
     context with the same keys and ciphertexts carried over."""
     jctx = jtfhe.make_context(lwe_n=LWE_N)
     sk = jtfhe.keygen_secret(jrng.new_key(1), lwe_n=LWE_N)
-    bk = jtfhe.keygen_boot(jctx, jrng.new_key(2), sk)
-    bk2 = jtfhe.keygen_boot_unrolled(jctx, jrng.new_key(3), sk)
+    # each key set compiled as one program (exact: the eager run's keys, for a
+    # fraction of the cost of compiling its ops one at a time)
+    bk = jax.jit(lambda s: jtfhe.keygen_boot(jctx, jrng.new_key(2), s))(sk)
+    bk2 = jax.jit(lambda s: jtfhe.keygen_boot_unrolled(jctx, jrng.new_key(3), s))(sk)
     j = dict(ctx=jctx, sk=sk, bk=bk, bk2=bk2,
              ct8=jtfhe.encrypt(jctx, sk, BITS8, jrng.new_key(4)),
              ct3=jtfhe.encrypt(jctx, sk, BITS8[:3], jrng.new_key(5)),
@@ -116,9 +119,12 @@ def test_drbg_keys_and_encrypt_match_reference(ref):
     jsk = jtfhe.keygen_secret(jd, lwe_n=LWE_N)
     tsk = tfhe.keygen_secret(td, lwe_n=LWE_N, device="cpu")
     pairs = [(tsk.lwe, jsk.lwe), (tsk.rlwe, jsk.rlwe)]
-    jbk, tbk = jtfhe.keygen_boot(j["ctx"], jd, jsk), tfhe.keygen_boot(t["ctx"], td, tsk)
+    # the reference's keygens compiled as one program each (the DRBG draws at trace
+    # time, in the eager order)
+    jbk = jax.jit(lambda s: jtfhe.keygen_boot(j["ctx"], jd, s))(jsk)
+    tbk = tfhe.keygen_boot(t["ctx"], td, tsk)
     pairs += [(tbk.bk, jbk.bk), (tbk.ksk_a, jbk.ksk_a), (tbk.ksk_b, jbk.ksk_b)]
-    jbk2 = jtfhe.keygen_boot_unrolled(j["ctx"], jd, jsk)
+    jbk2 = jax.jit(lambda s: jtfhe.keygen_boot_unrolled(j["ctx"], jd, s))(jsk)
     tbk2 = tfhe.keygen_boot_unrolled(t["ctx"], td, tsk)
     pairs += [(tbk2.bk2, jbk2.bk2), (tbk2.ksk_a, jbk2.ksk_a), (tbk2.ksk_b, jbk2.ksk_b)]
     jct = jtfhe.encrypt(j["ctx"], jsk, BITS8, jd)

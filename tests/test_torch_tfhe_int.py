@@ -7,6 +7,7 @@ ciphertexts (variances to a relative 1e-12) and decrypt to (x ± y) mod 2^W.
 The other integer operations run on the port's own keys, with both key
 kinds, and must decrypt to the right values."""
 
+import jax
 import numpy as np
 import pytest
 
@@ -40,7 +41,9 @@ def _hu(h):
 def ref():
     jctx = jtfhe.make_context(lwe_n=LWE_N)
     sk = jtfhe.keygen_secret(jrng.new_key(21), lwe_n=LWE_N)
-    bk = jtfhe.keygen_boot(jctx, jrng.new_key(22), sk)
+    # compiled as one program (exact: the eager run's key, for a fraction of the
+    # cost of compiling its ops one at a time)
+    bk = jax.jit(lambda s: jtfhe.keygen_boot(jctx, jrng.new_key(22), s))(sk)
     hx = jint.encrypt_huint(jctx, sk, XS, W, jrng.new_key(23))
     hy = jint.encrypt_huint(jctx, sk, YS, W, jrng.new_key(24))
     t = dict(ctx=tfhe.make_context(lwe_n=LWE_N, device="cpu"),

@@ -1,0 +1,188 @@
+"""Rank programs of the port's parallel tests (tests/test_torch_parallel_*.py).
+
+`spawn(job, world, workdir, inputs)` starts `world` gloo ranks on the CPU, each
+a `python -c` process on a free port of 127.0.0.1 that joins the group with the
+port's parallel.multihost.init_process(device="cpu") and runs `job(rank, world,
+inputs)`; the inputs go through workdir/inputs.pt, and each rank saves what it
+computed as workdir/<job>_rank<r>.pt and its output as <job>_rank<r>.log.  The
+ranks' standard streams go to those files: a rank inherits none of the test
+runner's pipes (a pytest-xdist worker talks to its controller over its stdin
+and stdout).  The tests hold the results against the JAX package in the pytest
+process.  No jax here: the ranks import torch and the port only.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+RANK_TIMEOUT = 600   # seconds for a whole start; a rank that fails leaves the others waiting
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _main(rank, world, port, job, workdir):
+    from heongpu_tpu_torch.parallel import multihost
+    torch.set_num_threads(1)
+    multihost.init_process(f"127.0.0.1:{port}", rank, world, device="cpu")
+    try:
+        out = globals()[job](rank, world, torch.load(os.path.join(workdir, "inputs.pt"),
+                                                     weights_only=False))
+        torch.save(out, os.path.join(workdir, f"{job}_rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(job: str, world: int, workdir, inputs: dict) -> list:
+    """Run `job` on `world` ranks; returns each rank's result, by rank."""
+    workdir = str(workdir)
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path[:0] = {[here, os.path.dirname(here)]!r}; "
+            f"import torch_parallel_ranks as r; "
+            f"r._main(int(sys.argv[1]), {world}, {_free_port()}, {job!r}, {workdir!r})")
+    procs = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"{job}_rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen([sys.executable, "-c", code, str(rank)],
+                                          stdin=subprocess.DEVNULL, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    if failed:
+        logs = {r: open(os.path.join(workdir, f"{job}_rank{r}.log")).read()[-3000:]
+                for r in failed}
+        raise RuntimeError(f"ranks {failed} of {job} failed:\n{logs}")
+    return [torch.load(os.path.join(workdir, f"{job}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _coef_mesh(d: int):
+    """A 'coef' mesh over ranks 0 .. d-1 (every rank of the world builds it)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh("cpu", torch.arange(d), mesh_dim_names=("coef",))
+
+
+def ntt_mesh(rank, world, inp):
+    """The sharded NTT at every D of inp["ds"] on rank `rank`'s block of
+    inp["x"] (lead dim 1), at the last D also on the whole as a DTensor, and
+    the mesh placements of inp["arrays"] on an
+    (8 / 4, 4) ('dp', 'limb') mesh, a ciphertext and the wrapped share sum on
+    a party mesh."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from heongpu_tpu_torch import interop
+    from heongpu_tpu_torch.models import ckks
+    from heongpu_tpu_torch.ops import ntt as nttm
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.parallel import multihost
+    from heongpu_tpu_torch.parallel import ntt_sharded as ns
+
+    out = {}
+    x = inp["x"]
+    tb = nttm.build_ntt_tables(inp["primes"], x.shape[-1], device="cpu")
+    x4 = ns.to_four_step(x, tb)
+    for d in inp["ds"]:
+        mesh = _coef_mesh(d)
+        if rank >= d:
+            continue
+        fwd, inv = ns.make_sharded_ntt(mesh, tb, lead_dims=1)
+        w = tb.n2 // d
+        y = fwd(x4[..., rank * w:(rank + 1) * w].contiguous())
+        out[("fwd", d)] = y
+        out[("inv", d)] = inv(y)
+    # the global array as a DTensor sharded on its last axis, over every rank
+    yd = fwd(distribute_tensor(x4, mesh, [Shard(x4.ndim - 1)]))
+    out["dtensor"] = (yd.to_local(), interop.to_numpy(yd), interop.to_numpy(inv(yd)))
+    m = meshlib.make_mesh(world, limb_shards=4, device="cpu")
+    for name, a in inp["arrays"].items():
+        out[("limb", name)] = meshlib.shard_array_limb_axis(a, m).to_local()
+    ct = ckks.Ciphertext(inp["ct"], 2, 0, 1.0)
+    out["ct_sharding"] = meshlib.ct_sharding(m).place(inp["ct"]).to_local()
+    out["ct_pytree"] = meshlib.shard_pytree_limb_axis(ct, m).c.to_local()
+    out["global_mesh"] = multihost.global_mesh(limb_shards=4, device="cpu").mesh.tolist()
+    share = inp["shares"][rank]
+    out["shares"] = multihost.allreduce_shares(share, multihost.party_mesh(device="cpu"))
+    return out
+
+
+def two_process(rank, world, inp):
+    """The counterpart of the JAX package's two-process run: a global mesh
+    over both processes, and share sums over a party mesh."""
+    from heongpu_tpu_torch.parallel import multihost
+    pm = multihost.party_mesh(device="cpu")
+    return {"world": dist.get_world_size(), "rank": dist.get_rank(),
+            "global_mesh": multihost.global_mesh(device="cpu").mesh.tolist(),
+            "float": multihost.allreduce_shares(inp["float"][rank], pm),
+            "words": multihost.allreduce_shares(inp["words"][rank], pm)}
+
+
+def keyswitch(rank, world, inp):
+    """keyswitch2_sharded at every k of inp["ks"] on the JAX package's
+    test_parallel shape; each rank saves its limb slice of (d0, d1)."""
+    from heongpu_tpu_torch.models import ckks
+    from heongpu_tpu_torch.parallel import keyswitch_sharded as kss
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+
+    ctx = ckks.make_context(*inp["ctx_args"], device="cpu", **inp["ctx_kw"])
+    ks2 = ctx.ks2[0]
+    sc = kss.stack_convs(ks2)
+    out = {}
+    for k in inp["ks"]:
+        m = meshlib.make_mesh(k, device="cpu")
+        if rank >= k:
+            continue
+        nq, nd = ks2.num_active // k, sc.d // k
+        s0, s1 = kss.keyswitch2_sharded(
+            m, inp["poly"][rank * nq:(rank + 1) * nq], inp["k0"][rank * nd:(rank + 1) * nd],
+            inp["k1"][rank * nd:(rank + 1) * nd], ks2, sc, ctx.ntt_qp_at(0), ctx.base_qp_at(0),
+            ctx.ntt_q(0))
+        out[k] = (s0, s1)
+    # the same through DTensors placed by the mesh layer, at the largest k
+    m = meshlib.make_mesh(world, device="cpu")
+    place = lambda t, axis: meshlib.shard_array_limb_axis(t, m, axis)
+    d0, d1 = kss.keyswitch2_sharded(m, place(inp["poly"], 0), place(inp["k0"], 0),
+                                    place(inp["k1"], 0), ks2, sc, ctx.ntt_qp_at(0),
+                                    ctx.base_qp_at(0), ctx.ntt_q(0))
+    out["dtensor"] = (d0.to_local(), d1.to_local(), d0.full_tensor(), d1.full_tensor())
+    return out
+
+
+def boot_keys(rank, world, inp):
+    """The limb_align=4 bootstrap key set placed on a 4-way limb mesh: each
+    Galois and relin key's local shard, and the bytes of the set and of this
+    rank's shards."""
+    from torch.distributed.tensor import DTensor
+
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+
+    m = meshlib.make_mesh(world, limb_shards=world, device="cpu")
+    sh = meshlib.shard_pytree_limb_axis(inp["keys"], m)
+    tensors = []
+    meshlib.map_tensors(sh, tensors.append)
+    return {"gk": {e: (k.k0.to_local(), k.k1.to_local()) for e, k in sh.gk.keys.items()},
+            "rk": (sh.rk.k0.to_local(), sh.rk.k1.to_local()),
+            "all_dtensors": all(isinstance(t, DTensor) for t in tensors),
+            "total_bytes": sum(t.full_tensor().nbytes for t in tensors),
+            "local_bytes": sum(t.to_local().nbytes for t in tensors)}
