@@ -57,6 +57,13 @@ Then drives the parallel layer: the coefficient-sharded NTT on K1's split
 passes and the digit-sharded keyswitch on a one-rank NCCL group at the main
 path's width, and bootstrap keys aligned for a 4-way limb mesh.
 
+Then drives the host utilities (storage, memory, profiling) on the main
+path's relinearization key, the native parameter engine at the main path's
+N, and the limb-sharded CKKS step (multiply -> relinearize -> rescale ->
+multiply -> relinearize on a ('dp', 'limb') mesh, keys placed by limb) on a
+one-rank NCCL group at the main path's width, under both keyswitching
+methods, on a batch of two.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -232,6 +239,22 @@ Phases (each raises on failure, so the script exits non-zero):
      card; (c) limb_align=4 keys at phase 11's N=256 configuration: every key's
      limb extent divides 4, and the bootstrap's residues on the card equal the
      CPU's.
+ 20. the host utilities, the native engine and the limb-sharded CKKS step
+     (heongpu_tpu_torch/utils/{storage,memory,profiling,native}.py,
+     parallel/ckks_sharded.py): (a) the main path's relin key parked by
+     to_host and brought back by to_device (storage_of DEVICE, HOST, DEVICE),
+     mult+relin on it identical; device_pool_status's bytes in use equal to
+     torch.cuda.memory_allocated; time_op; a profiling.trace file that holds
+     the K5 launch; a device_memory_profile snapshot; (b) the native engine
+     built with g++ (its absence fails), its primes, roots and NTT tables at
+     N=2^16 equal to the pure-Python path's; (c) on a one-rank NCCL group at
+     the main path's width, Method II and phase 16's Method I, a batch of 2
+     placed by ct_sharding(batched) and the key by shard_pytree_limb_axis:
+     mult -> relin -> rescale -> mult -> relin equal to the unsharded entry
+     points on each pair, launches counted from 0 and held against plain,
+     keyswitch2_fused never, div_round once a relinearize; device busy and
+     wall ms of one mult+relin+rescale sharded against unsharded.  One rank
+     runs no exchange on the card: the gloo tests hold the exchanges.
 On every path the calls that end in one ÷P on the card (div_round_sites:
 each keyswitch, each keyswitch finish, each encryption, each BGV mod
 switch) are counted, and the path fails unless K6 launched once for each.  Phase 7 also times K2
@@ -663,7 +686,8 @@ def held_against_plain(what, errs):
 DIV_ROUND_SITES = (("ops.keyswitch2", "keyswitch2"), ("models.ringkit", "ks_finish"),
                    ("models.ckks", "_encrypt_zero_ntt"), ("models.bfv", "encrypt"),
                    ("models.bgv", "encrypt"), ("models.bgv", "mod_switch"),
-                   ("parallel.keyswitch_sharded", "keyswitch2_sharded"))
+                   ("parallel.keyswitch_sharded", "keyswitch2_sharded"),
+                   ("parallel.ckks_sharded", "relinearize"))
 K6_MODES = ("div_round", "div_exact_t")
 
 
@@ -3319,6 +3343,209 @@ def parallel_phases(dev, card, errs, gen, ctx, rk):
     return launches, rec, pass_rec
 
 
+# The host utilities, the native parameter engine and the limb-sharded CKKS step
+# (phase 20): the utilities on the main path's relinearization key, the engine at
+# the main path's N, the sharded step on a one-rank NCCL group at the main path's
+# width under Method II and on phase 16's Method-I shape, a batch of SHARDED_BATCH
+SHARDED_BATCH = 2
+SHARDED_OPS = ("mult0", "relin0", "rescale", "mult1", "relin1")
+
+
+def utilities_phase(card, ctx, rk, ct1, ct2):
+    """Phase 20 (a): the main path's relin key parked by storage.to_host and
+    brought back by to_device (storage_of DEVICE, HOST, DEVICE), mult+relin on
+    it equal to mult+relin on the key that never moved; device_pool_status's
+    bytes in use against torch.cuda.memory_allocated; time_op of mult+relin;
+    profiling.trace of one mult+relin, its file holding the K5 launch; a
+    device_memory_profile snapshot.  Returns the record."""
+    import pickle
+    import tempfile
+    import torch
+    from heongpu_tpu_torch.kernels import build
+    from heongpu_tpu_torch.models import ckks
+    from heongpu_tpu_torch.utils import memory, profiling, storage
+    t0 = time.perf_counter()
+    step = lambda key: ckks.relinearize(ctx, ckks.multiply(ctx, ct1, ct2), key)
+    want = step(rk).c
+    parked = storage.to_host(rk)
+    back = storage.to_device(parked)
+    where = [storage.storage_of(t) for t in (rk, parked, back)]
+    same = torch.equal(step(back).c, want)
+    del parked, back
+    torch.cuda.synchronize()
+    st = memory.device_pool_status()
+    allocated = torch.cuda.memory_allocated()
+    secs = profiling.time_op(step, rk, iters=5)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        with profiling.trace(tmp):
+            step(rk)
+        names = os.listdir(tmp)
+        k5_traced = any("keyswitch2_fused_kernel" in open(os.path.join(tmp, f)).read()
+                        for f in names)
+        snap = os.path.join(tmp, "snapshot.pickle")
+        profiling.device_memory_profile(snap)
+        with open(snap, "rb") as f:
+            segments = len(pickle.load(f)["segments"])
+        snap_bytes = os.path.getsize(snap)
+    ok = {"storage_of": where == [storage.DEVICE, storage.HOST, storage.DEVICE],
+          "mult_relin_on_moved_key": same, "bytes_in_use": st.bytes_in_use == allocated,
+          "time_op": secs > 0, "trace_holds_k5": len(names) == 1 and k5_traced,
+          "memory_snapshot": segments > 0}
+    print(f"utilities (a): storage_of relin key / to_host / to_device {where}; mult+relin on the "
+          f"moved key identical: {same}; {st}; bytes in use {st.bytes_in_use} against "
+          f"memory_allocated {allocated}; time_op mult+relin {secs * 1e3:.4f} ms; trace {names} "
+          f"holds K5: {k5_traced}; snapshot {segments} segments, {snap_bytes} bytes; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not all(ok.values()):
+        raise AssertionError(f"utilities (a) failed: {ok}")
+    return {"checks": ok, "time_op_ms": secs * 1e3, "bytes_in_use": st.bytes_in_use,
+            "bytes_limit": st.bytes_limit, "snapshot_segments": segments}
+
+
+def native_phase(card):
+    """Phase 20 (b): the native parameter engine, built with g++, must be
+    available; the main path's chain (twelve 29-bit Q primes, then four 30-bit
+    specials, as make_context draws them) and the NTT tables over it at N=2^16
+    equal on the engine and on the pure-Python path.  Returns the record."""
+    import torch
+    from heongpu_tpu_torch.ops import ntt as nttm
+    from heongpu_tpu_torch.utils import native, nt
+    if not native.available():
+        raise AssertionError(f"native (b): the parameter engine did not build: "
+                             f"{native.unavailable_reason()}")
+
+    def chain():
+        t = time.perf_counter()
+        used, primes = set(), []
+        for b in Q_BITS:
+            primes += nt.generate_ntt_primes(b, 1, N, exclude=used)
+            used.add(primes[-1])
+        primes += nt.generate_ntt_primes(30, ALPHA, N, exclude=used)
+        roots = [nt.minimal_primitive_root_2n(2 * N, p) for p in primes]
+        tb = nttm.build_ntt_tables(primes, N, device="cpu")
+        return primes, roots, tb, time.perf_counter() - t
+
+    got = chain()
+    saved = native.available
+    native.available = lambda: False
+    try:
+        py = chain()
+    finally:
+        native.available = saved
+    same = {"primes": got[0] == py[0], "roots": got[1] == py[1],
+            "tables": all(torch.equal(getattr(got[2], f), getattr(py[2], f))
+                          for f in got[2]._tensor_fields())}
+    print(f"native (b): engine built with g++; {len(got[0])} primes, roots and NTT tables at "
+          f"N={N} equal to the pure-Python path's: {same}; {got[3]:.2f} s against {py[3]:.2f} s "
+          f"in Python (host) [{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"native (b): the engine and the Python path differ: {same}")
+    return {"identical": same, "engine_s": got[3], "python_s": py[3]}
+
+
+def sharded_step(mod, ctx, rk, c1, c2):
+    """multiply -> relinearize -> rescale -> multiply (the square) ->
+    relinearize through `mod` (ckks or parallel.ckks_sharded): every op's c."""
+    from heongpu_tpu_torch.models import ckks
+    a = ckks.Ciphertext(c1, 2, 0, ctx.default_scale)
+    b = ckks.Ciphertext(c2, 2, 0, ctx.default_scale)
+    out = {"mult0": mod.multiply(ctx, a, b)}
+    out["relin0"] = mod.relinearize(ctx, out["mult0"], rk)
+    out["rescale"] = mod.rescale(ctx, out["relin0"])
+    out["mult1"] = mod.multiply(ctx, out["rescale"], out["rescale"])
+    out["relin1"] = mod.relinearize(ctx, out["mult1"], rk)
+    return {k: v.c for k, v in out.items()}
+
+
+def ckks_sharded_phase(dev, card, errs, gen, ctx, rk, ct1, ct2):
+    """Phase 20 (c): the limb-sharded CKKS step (parallel/ckks_sharded.py) on a
+    one-rank NCCL group (the box has one card: no exchange runs on it; the gloo
+    tests hold the exchanges on the CPU), at the main path's width under Method
+    II (ctx, rk and the pair ct1, ct2 of phase 5) and on phase 16's Method-I
+    shape, each on a batch of SHARDED_BATCH pairs placed by ct_sharding(batched)
+    with the key placed by shard_pytree_limb_axis: multiply -> relinearize ->
+    rescale -> multiply -> relinearize, launches counted from 0 and every launch
+    held against plain, K5 never launched and K6 once a relinearize; every op's
+    result equal to the unsharded entry points' on each pair.  Then the device
+    busy ms of one mult+relin+rescale, sharded on one rank against unsharded.
+    Returns (launches, record)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks
+    from heongpu_tpu_torch.parallel import ckks_sharded as cks
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.parallel import multihost
+    from heongpu_tpu_torch.utils import rng
+    t0 = time.perf_counter()
+    m1ctx = ckks.make_context(N, Q_BITS, device=dev)
+    rk1 = ckks.keygen_relin(m1ctx, rng.new_generator(201, dev),
+                            ckks.keygen_secret(m1ctx, rng.new_generator(200, dev)))
+    q1 = list(m1ctx.q_primes) * 2 * SHARDED_BATCH
+    pairs = {"Method II": (ctx, rk, torch.stack([ct1.c, ct2.c]), torch.stack([ct2.c, ct1.c])),
+             "Method I": (m1ctx, rk1,
+                          *(rand_residues(q1, (len(q1), N), gen, dev).view(
+                              SHARDED_BATCH, 2, m1ctx.k, N) for _ in range(2)))}
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    multihost.init_process(f"127.0.0.1:{port}", 0, 1)
+    try:
+        mesh = meshlib.make_mesh(1)
+        place = meshlib.ct_sharding(mesh, batched=True).place
+        placed = {k: (cx, meshlib.shard_pytree_limb_axis(key, mesh), place(a), place(b))
+                  for k, (cx, key, a, b) in pairs.items()}
+        what = "ckks_sharded (c) one-rank NCCL group"
+        kernels.reset_launches()
+        with held_against_plain(what, errs), div_round_sites(what) as sites:
+            outs = {k: sharded_step(cks, *v) for k, v in placed.items()}
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        same = {}
+        for k, (cx, key, a, b) in pairs.items():
+            refs = [sharded_step(ckks, cx, key, a[i], b[i]) for i in range(SHARDED_BATCH)]
+            same[k] = all(torch.equal(outs[k][op].to_local()[i], refs[i][op])
+                          for op in SHARDED_OPS for i in range(SHARDED_BATCH))
+        print(f"{what}: N={N}, {len(Q_BITS)} x 29-bit Q, Method II (alpha {ALPHA}) and Method I, "
+              f"a batch of {SHARDED_BATCH}: mult -> relin -> rescale -> mult -> relin equal to "
+              f"the unsharded entry points on each pair: {same}; launches {launches}; ÷P sites "
+              f"{sites}; {time.perf_counter() - t0:.1f} s")
+        if not all(same.values()):
+            raise AssertionError(f"ckks_sharded (c): the sharded step differs: {same}")
+        require_launched(what, launches, ("ntt_fwd", "ntt_inv", "base_conv", "mac_keys",
+                                          "div_round"))
+        relins = 2 * len(pairs)
+        if launches["keyswitch2_fused"] or launches["div_round"] != relins:
+            raise AssertionError(f"ckks_sharded (c): K5 launched or K6 not once a relinearize "
+                                 f"({relins}): {launches}")
+        timed = {}
+        one = meshlib.ct_sharding(mesh).place
+        for k, (cx, key, a, b) in placed.items():
+            sa, sb = (ckks.Ciphertext(one(x.to_local()[0]), 2, 0, cx.default_scale) for x in (a, b))
+            ua, ub = (ckks.Ciphertext(x[0], 2, 0, cx.default_scale) for x in pairs[k][2:])
+            for name, mod, x, y, kk in (("sharded", cks, sa, sb, key),
+                                        ("unsharded", ckks, ua, ub, pairs[k][1])):
+                def fn(mod=mod, x=x, y=y, kk=kk, cx=cx):
+                    return mod.rescale(cx, mod.relinearize(cx, mod.multiply(cx, x, y), kk))
+                busy, wall, idle, per_kernel = device_idle_share(fn, 5)
+                timed[f"{k} {name}"] = {"busy_ms": busy, "wall_ms": wall, "idle_share": idle,
+                                        "kernel_ms": own_kernels(per_kernel)}
+            print(f"time {k} mult+relin+rescale at N={N}, device busy / wall ms: sharded on one "
+                  f"rank {fmt_ms(timed[f'{k} sharded']['busy_ms'])} / "
+                  f"{timed[f'{k} sharded']['wall_ms']:.4f}, unsharded "
+                  f"{fmt_ms(timed[f'{k} unsharded']['busy_ms'])} / "
+                  f"{timed[f'{k} unsharded']['wall_ms']:.4f} [{card}]")
+    finally:
+        dist.destroy_process_group()
+    rec = {"identical": same, "launches": launches, "sites": dict(sites), "timed": timed,
+           "seconds": time.perf_counter() - t0}
+    del m1ctx, rk1, pairs, placed, outs
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3744,11 +3971,17 @@ def run(dev) -> int:
     mpc_launches, mpc_rec, mpc_kern = mpc_phases(dev, card, errs)
     # -- 19. the parallel layer ------------------------------------------------------------
     par_launches, par_rec, par_kern = parallel_phases(dev, card, errs, gen, ctx, rk)
-    # each kernel's launches on the eleven paths, each run counted from 0 just before it
+    # -- 20. the host utilities, the native engine and the limb-sharded CKKS step ----------
+    t20 = time.perf_counter()
+    util_rec = utilities_phase(card, ctx, rk, ct1, ct2)
+    native_rec = native_phase(card)
+    sh_launches, sh_rec = ckks_sharded_phase(dev, card, errs, gen, ctx, rk, ct1, ct2)
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s")
+    # each kernel's launches on the twelve paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
                 + v2_launches[k] + bfv_launches[k] + m1_launches[k] + bgv_launches[k]
-                + mpc_launches[k] + par_launches[k] for k in launches}
+                + mpc_launches[k] + par_launches[k] + sh_launches[k] for k in launches}
     # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's, its
     # raw-words mode at MPC BFV's widest draw (a relin round's gaussian, (29, 2^15))
     k7_kern = boot_rec["compressed"]["kernels"]
@@ -3838,6 +4071,8 @@ def run(dev) -> int:
               "bgv_launches": bgv_launches, "bgv": bgv_rec,
               "mpc_launches": mpc_launches, "mpc": mpc_rec,
               "parallel_launches": par_launches, "parallel": par_rec,
+              "utilities": util_rec, "native": native_rec,
+              "ckks_sharded_launches": sh_launches, "ckks_sharded": sh_rec,
               "div_round_runs": DIV_ROUND_RUNS}
     busy = {"CKKS mult+relin (Method II)": ckks_prof,
             "CKKS mult+relin, Method I": m1_rec["profile"],

@@ -199,11 +199,6 @@ def make_context(n: int,
         g5 = g5 * 5 % m2
     slot_index = nttm.inv_eval_order(n)[slot_eval].astype(np.int64)
 
-    enc_div = []
-    remaining = list(qp)
-    for sp in reversed(p_primes):
-        remaining = remaining[:-1]
-        enc_div.append(rns.DivRoundLastq.build(remaining, sp, device))
     ks2 = ()
     if ks_type == "II":
         ks2 = (keyswitch2.build_ks2_level(q_primes, p_primes, k, alpha, device),)
@@ -224,7 +219,7 @@ def make_context(n: int,
         dec_off=i32([half_q % s * pow(Q % s, -1, s) % s for s in (t, gamma)]),
         gamma_inv_t=pow(gamma % t, -1, t),
         div_p=rns.DivRoundLastq.build(q_primes, p_primes[0], device),
-        enc_div=rns.DivRoundChain.build(enc_div), ks2=ks2,
+        enc_div=keyswitch2.div_chain(q_primes, p_primes, device), ks2=ks2,
         slot_index=torch.from_numpy(slot_index).to(device),
         ntt_bsk=nttm.build_ntt_tables(bsk_all, n, device=device),
         conv_q_bsk=rns.BaseConv.build(q_primes, bsk_all, device),

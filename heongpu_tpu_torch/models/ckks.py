@@ -80,7 +80,10 @@ class CkksContext:
         return self.k - level
 
     def ntt_q(self, level: int) -> nttm.NttTables:
-        return self.ntt_qp.slice_limbs(0, self.active(level))
+        key = ("ntt_q", level)
+        if key not in self._level_tables:
+            self._level_tables[key] = self.ntt_qp.slice_limbs(0, self.active(level))
+        return self._level_tables[key]
 
     def base_q_at(self, level: int) -> rns.Base:
         return self.base_q.take(slice(0, self.active(level)))
@@ -195,11 +198,6 @@ def make_context(n: int,
     div_level = tuple(
         rns.DivRoundLastq.build(q_primes[:k - lvl - 1], q_primes[k - lvl - 1], device)
         for lvl in range(k - 1))
-    enc_div = []
-    remaining = list(q_primes) + list(p_primes)
-    for sp in reversed(p_primes):
-        remaining = remaining[:-1]
-        enc_div.append(rns.DivRoundLastq.build(remaining, sp, device))
     ks2 = ()
     if ks_type == "II":
         ks2 = tuple(keyswitch2.build_ks2_level(q_primes, p_primes, k - lvl, alpha, device)
@@ -215,7 +213,7 @@ def make_context(n: int,
         base_qp=rns.Base.build(q_primes + p_primes, device),
         div_p=rns.DivRoundLastq.build(q_primes, p_primes[0], device),
         div_level=div_level,
-        enc_div=rns.DivRoundChain.build(enc_div),
+        enc_div=keyswitch2.div_chain(q_primes, p_primes, device),
         ks2=ks2,
         slot_to_ntt=torch.from_numpy(slot_to_ntt).to(device),
         conj_perm=polyops.galois_perm_ntt(2 * n - 1, n, device),

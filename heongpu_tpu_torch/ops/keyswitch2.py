@@ -33,22 +33,27 @@ class KS2Level:
     div_stages: rns.DivRoundChain         # divide by each special prime (one K6 launch)
 
 
+def div_chain(q_primes: Sequence[int], p_primes: Sequence[int], device) -> rns.DivRoundChain:
+    """The exact ÷P over the basis q_primes + p_primes: one DivRoundLastq stage
+    per special prime, the last special first (one K6 launch on the card)."""
+    stages = []
+    remaining = [int(q) for q in q_primes] + [int(q) for q in p_primes]
+    for sp in reversed(p_primes):
+        remaining = remaining[:-1]
+        stages.append(rns.DivRoundLastq.build(remaining, int(sp), device))
+    return rns.DivRoundChain.build(stages)
+
+
 def build_ks2_level(q_primes: Sequence[int], p_primes: Sequence[int],
                     ka: int, alpha: int, device) -> KS2Level:
     """Tables for the level with active primes q_primes[:ka]."""
     active = [int(q) for q in q_primes[:ka]]
     specials = [int(q) for q in p_primes]
     groups = tuple(tuple(range(j, min(j + alpha, ka))) for j in range(0, ka, alpha))
-    target_basis = active + specials
-    convs = tuple(rns.BaseConv.build([active[i] for i in g], target_basis, device)
+    convs = tuple(rns.BaseConv.build([active[i] for i in g], active + specials, device)
                   for g in groups)
-    stages = []
-    remaining = list(target_basis)
-    for sp in reversed(specials):
-        remaining = remaining[:-1]
-        stages.append(rns.DivRoundLastq.build(remaining, sp, device))
     return KS2Level(alpha=alpha, groups=groups, num_active=ka,
-                    convs=convs, div_stages=rns.DivRoundChain.build(stages))
+                    convs=convs, div_stages=div_chain(active, specials, device))
 
 
 def keyswitch2(poly_q, k0, k1, ks2: KS2Level, ntt_qp_level: nttm.NttTables,

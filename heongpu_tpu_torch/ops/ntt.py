@@ -30,7 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils import nt
+from ..utils import native, nt
 from . import modmath as mm
 
 
@@ -220,17 +220,21 @@ def build_ntt_tables(primes, n: int, device, psis=None) -> NttTables:
     packed = {k: np.empty((L, n1 if k.endswith(("1p", "1p_sh")) else n2), np.uint32)
               for k in _PACKED}
 
+    use_native = native.available()
     for li, (p, psi) in enumerate(zip(primes, psis)):
         w = psi * psi % p
         iw = pow(w, -1, p)
         pu = np.uint64(p)
-        pp = pow_series(psi, n, p)
-        big["psi"][li] = pp
-        big["psi_sh"][li] = shoup_np(pp, p)
-        ip = (pow_series(pow(psi, -1, p), n, p).astype(np.uint64)
-              * np.uint64(pow(n, -1, p)) % pu)
-        big["ipsi_n"][li] = ip.astype(np.uint32)
-        big["ipsi_n_sh"][li] = shoup_np(ip, p)
+        if use_native:
+            (big["psi"][li], big["psi_sh"][li], big["ipsi_n"][li],
+             big["ipsi_n_sh"][li]) = native.psi_tables(psi, n, p)
+        else:
+            big["psi"][li] = pow_series(psi, n, p)
+            big["psi_sh"][li] = shoup_np(big["psi"][li], p)
+            big["ipsi_n"][li] = (pow_series(pow(psi, -1, p), n, p).astype(np.uint64)
+                                 * np.uint64(pow(n, -1, p)) % pu)
+            big["ipsi_n_sh"][li] = shoup_np(big["ipsi_n"][li], p)
+        pp, ip = big["psi"][li], big["ipsi_n"][li].astype(np.uint64)
 
         # cross twiddles with the folded negacyclic factors:
         #   fwd: tw_mat[r·N2 + i2] = psi^(i2) · w^(i2 · br1(r))

@@ -36,7 +36,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..ops import modmath as mm
 from ..ops import ntt as nttm
 from ..ops import rns
-from ..ops.keyswitch2 import KS2Level, build_ks2_level
+from ..ops.keyswitch2 import KS2Level, div_chain
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,15 +81,14 @@ def _allreduce_mod(acc, p, group, k: int):
     return acc
 
 
-@functools.lru_cache(maxsize=16)
-def _tail(ks2: KS2Level, ntt_qp: nttm.NttTables, ntt_q: nttm.NttTables, lo: int, hi: int):
-    """A rank's tail tables: Q̃ tables over Q limbs [lo, hi) and the specials,
-    the ÷P chain over that basis, and the Q tables of [lo, hi)."""
-    ka = ks2.num_active
+@functools.lru_cache(maxsize=32)
+def tail_tables(ntt_qp: nttm.NttTables, ntt_q: nttm.NttTables, ka: int, lo: int, hi: int):
+    """A rank's tail tables: of the level's Q̃ tables ntt_qp (ka Q limbs, then
+    the specials), those over Q limbs [lo, hi) and the specials, the ÷P chain
+    over that basis, and the Q tables of [lo, hi)."""
     qp = ntt_qp.slice_limbs(lo, hi).concat(ntt_qp.slice_limbs(ka, ntt_qp.num_limbs))
-    sub = build_ks2_level(qp.primes[:hi - lo], qp.primes[hi - lo:], hi - lo, ks2.alpha,
-                          ntt_qp.device)
-    return qp, sub.div_stages, ntt_q.slice_limbs(lo, hi)
+    chain = div_chain(qp.primes[:hi - lo], qp.primes[hi - lo:], ntt_qp.device)
+    return qp, chain, ntt_q.slice_limbs(lo, hi)
 
 
 def keyswitch2_sharded(mesh: DeviceMesh, poly_q, k0, k1, ks2: KS2Level,
@@ -121,7 +120,7 @@ def keyswitch2_sharded(mesh: DeviceMesh, poly_q, k0, k1, ks2: KS2Level,
     acc = _allreduce_mod(acc, base_qp.col(), group, k)
     # tail over this rank's Q limbs and the specials: per limb, as the reference's
     # tail partitioned under its output sharding
-    qp_loc, chain, q_loc = _tail(ks2, ntt_qp, ntt_q, rank * m, (rank + 1) * m)
+    qp_loc, chain, q_loc = tail_tables(ntt_qp, ntt_q, ks2.num_active, rank * m, (rank + 1) * m)
     ka = ks2.num_active
     part = torch.cat([acc[:, rank * m:(rank + 1) * m], acc[:, ka:]], dim=1)
     out = chain(nttm.ntt_inv(part.contiguous(), qp_loc))

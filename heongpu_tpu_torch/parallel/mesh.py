@@ -27,7 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
-from ..models import ringkit
+from ..utils.storage import map_tensors
 
 
 def make_mesh(n_devices: Optional[int] = None, limb_shards: Optional[int] = None,
@@ -91,25 +91,6 @@ def shard_array_limb_axis(x, mesh: DeviceMesh, limb_axis: int = -2):
     if x.ndim >= 2 and x.shape[limb_axis] % nl == 0:
         return _sharding(mesh, {"limb": limb_axis % x.ndim}).place(x)
     return replicated(mesh).place(x)
-
-
-def map_tensors(tree, fn):
-    """`tree` with fn applied to each of its tensors: the fields of the port's
-    dataclasses (ciphertexts, keys, BootKeys and their pieces), the keys of a
-    GaloisKey, and the items of dicts, lists and tuples, walked in order."""
-    walk = lambda t: map_tensors(t, fn)
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, ringkit.GaloisKey):
-        return ringkit.GaloisKey(walk(tree.keys))
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{f.name: walk(getattr(tree, f.name))
-                                            for f in dataclasses.fields(tree) if f.init})
-    if isinstance(tree, dict):
-        return {k: walk(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(walk(v) for v in tree)
-    return tree
 
 
 def shard_pytree_limb_axis(tree, mesh: DeviceMesh, limb_axis: int = -2):

@@ -1,9 +1,9 @@
 """Host-side number theory: primes and primitive roots for NTT parameters.
 
-Pure Python integers, run once at context build time.  Copy of the
-pure-Python path of heongpu_tpu/utils/nt.py (the reference may take its native
-C++ engine instead; the two are bit-identical and the tests assert equal
-primes and tables).
+Python integers, run once at context build time (a copy of
+heongpu_tpu/utils/nt.py).  Prime generation and the minimal primitive root
+take the native C++ engine (utils/native.py) when it is available, as the JAX
+package does; both paths give the same numbers, which the tests hold.
 """
 
 from __future__ import annotations
@@ -42,6 +42,9 @@ def generate_ntt_primes(bit_size: int, count: int, n: int,
                         exclude: set | None = None) -> List[int]:
     """`count` primes p ≡ 1 (mod 2n) below 2**bit_size, largest first."""
     assert bit_size <= 31, "residues are held in 32-bit lanes: primes < 2**31"
+    from . import native
+    if native.available():
+        return native.generate_ntt_primes(bit_size, count, n, exclude)
     m = 2 * n
     exclude = exclude or set()
     out: List[int] = []
@@ -94,6 +97,9 @@ def root_of_unity(order: int, p: int) -> int:
 def minimal_primitive_root_2n(n2: int, p: int) -> int:
     """Smallest primitive 2n-th root of unity mod p among the first odd
     powers (deterministic tables)."""
+    from . import native
+    if native.available():
+        return native.minimal_primitive_root_2n(n2, p)
     w = root_of_unity(n2, p)
     best = w
     x = w

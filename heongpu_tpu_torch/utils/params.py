@@ -18,6 +18,10 @@ MAX_LOGQP = {
               32768: 476, 65536: 968},
 }
 
+MAX_POLY_DEGREE = 65536   # the reference library's largest ring (kernel/defines.h:14)
+MIN_POLY_DEGREE = 1024
+MAX_PRIME_BITS = 30       # residues are held in 32-bit lanes (the reference library allows 61)
+
 
 def validate_security(n: int, qp_primes: List[int], sec_level: str = "tc128"):
     """Raise if the modulus chain exceeds the security budget for ring size n.

@@ -44,6 +44,8 @@ from . import threefry
 ERROR_STD_DEV = 3.2  # sigma of the centered discrete gaussian
 GAUSS_TAIL = 6       # truncate at 6 sigma
 
+CtrDrbg = _drbg.CtrDrbg
+
 
 @dataclasses.dataclass(frozen=True)
 class ThreefryKey:

@@ -186,3 +186,55 @@ def boot_keys(rank, world, inp):
             "all_dtensors": all(isinstance(t, DTensor) for t in tensors),
             "total_bytes": sum(t.full_tensor().nbytes for t in tensors),
             "local_bytes": sum(t.to_local().nbytes for t in tensors)}
+
+
+def ckks_step(rank, world, inp):
+    """The limb-sharded CKKS step (parallel/ckks_sharded.py) for each case of
+    inp["cases"]: multiply -> relinearize -> rescale -> multiply (a square) ->
+    relinearize on a ('dp', 'limb') mesh of all the ranks, limb_shards
+    case["limb"], the ciphertexts placed by ct_sharding (batched when
+    case["batched"]) and the relin key by shard_pytree_limb_axis.  Each rank
+    saves every op's local shard and whether it is sharded on 'limb', its local
+    key shapes, and what it received: the rows of every irecv buffer the step
+    posted, checked here against every row of the whole key."""
+    from torch.distributed.tensor import DTensor
+
+    from heongpu_tpu_torch.models import ckks
+    from heongpu_tpu_torch.parallel import ckks_sharded as cks
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+
+    received = []
+    post = dist.batch_isend_irecv
+
+    def spy(ops):
+        received.extend(op.tensor for op in ops if op.op is dist.irecv)
+        return post(ops)
+
+    def refuse(*a, **k):
+        raise AssertionError("the sharded step gathered a DTensor")
+
+    dist.batch_isend_irecv = spy
+    DTensor.full_tensor = DTensor.redistribute = refuse
+    out = {}
+    for case in inp["cases"]:
+        ctx = ckks.make_context(*case["ctx_args"], device="cpu", **case["ctx_kw"])
+        m = meshlib.make_mesh(world, limb_shards=case["limb"], device="cpu")
+        rk = meshlib.shard_pytree_limb_axis(ckks.KSKey(case["k0"], case["k1"]), m)
+        place = meshlib.ct_sharding(m, batched=case["batched"]).place
+        a = ckks.Ciphertext(place(case["c1"]), 2, 0, ctx.default_scale)
+        b = ckks.Ciphertext(place(case["c2"]), 2, 0, ctx.default_scale)
+        received.clear()
+        steps = {"mult0": cks.multiply(ctx, a, b)}
+        steps["relin0"] = cks.relinearize(ctx, steps["mult0"], rk)
+        steps["rescale"] = cks.rescale(ctx, steps["relin0"])
+        steps["mult1"] = cks.multiply(ctx, steps["rescale"], steps["rescale"])
+        steps["relin1"] = cks.relinearize(ctx, steps["mult1"], rk)
+        key_rows = {bytes(row.numpy()) for half in (case["k0"], case["k1"])
+                    for row in half.reshape(-1, half.shape[-1])}
+        got_rows = [row for buf in received for row in buf.reshape(-1, buf.shape[-1])]
+        out[case["name"]] = {
+            "steps": {op: (ct.c.to_local(), ct.c.placements, ct.level) for op, ct in steps.items()},
+            "key_local": (tuple(rk.k0.to_local().shape), tuple(rk.k1.to_local().shape)),
+            "received_rows": len(got_rows),
+            "received_key_rows": sum(bytes(r.numpy()) in key_rows for r in got_rows)}
+    return out
