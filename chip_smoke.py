@@ -64,6 +64,11 @@ multiply -> relinearize on a ('dp', 'limb') mesh, keys placed by limb) on a
 one-rank NCCL group at the main path's width, under both keyswitching
 methods, on a batch of two.
 
+Then drives the limb-sharded bootstrap (parallel/boot_sharded.py: mod_raise,
+coeff_to_slot, eval_exp_sin, slot_to_coeff on limb-sharded ciphertexts, keys
+placed by limb) on a one-rank NCCL group: tests/test_boot_sharded.py's
+configuration at N=256, and phase 13's depth-48 bootstrap at N=2^16.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -255,6 +260,18 @@ Phases (each raises on failure, so the script exits non-zero):
      keyswitch2_fused never, div_round once a relinearize; device busy and
      wall ms of one mult+relin+rescale sharded against unsharded.  One rank
      runs no exchange on the card: the gloo tests hold the exchanges.
+ 21. the limb-sharded bootstrap (parallel/boot_sharded.py) on a one-rank
+     NCCL group, keys placed by shard_pytree_limb_axis: (a) N=256,
+     tests/test_boot_sharded.py's configuration with limb_align=4 keys made
+     on the CPU: the card's sharded coeff_to_slot and regular_bootstrap equal
+     to the CPU plain path's unsharded results, K5 never launched; (b) phase
+     13 (c)'s depth-48 bootstrap at N=2^16 on its keys and input made again
+     from its seed, launches counted from 0 and held against plain, K5 never
+     launched, K6 once a ÷P site: residues equal to phase 13 (c)'s output,
+     error within 3e-5; the bytes the placement adds, the peak
+     memory_allocated against phase 13 (c)'s, device busy, wall and idle
+     share against the unsharded bootstrap's; (c) a plain-tensor ciphertext
+     raises TypeError, a stripped key ParameterError.
 On every path the calls that end in one ÷P on the card (div_round_sites:
 each keyswitch, each keyswitch finish, each encryption, each BGV mod
 switch) are counted, and the path fails unless K6 launched once for each.  Phase 7 also times K2
@@ -681,13 +698,14 @@ def held_against_plain(what, errs):
 # run on the card: a keyswitch of either route (Method II), a keyswitch finish
 # (Method I's keyswitch_core, the hoisted and accumulated finishes of both
 # methods: ckks.ks_finish_at, BFV's hoisted rotations and BGV's keyswitch call
-# it), an encryption, and BGV's mod switch (K6's t-exact mode, as BGV's other
-# divisions).  (module, function).
+# it), an encryption, BGV's mod switch (K6's t-exact mode, as BGV's other
+# divisions), and the sharded ops' ÷P tail (every sharded keyswitch and
+# ks_finish_at ends in it).  (module, function).
 DIV_ROUND_SITES = (("ops.keyswitch2", "keyswitch2"), ("models.ringkit", "ks_finish"),
                    ("models.ckks", "_encrypt_zero_ntt"), ("models.bfv", "encrypt"),
                    ("models.bgv", "encrypt"), ("models.bgv", "mod_switch"),
                    ("parallel.keyswitch_sharded", "keyswitch2_sharded"),
-                   ("parallel.ckks_sharded", "relinearize"))
+                   ("parallel.ckks_sharded", "_tail"))
 K6_MODES = ("div_round", "div_exact_t")
 
 
@@ -1491,10 +1509,13 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
     if not err_c < TOL_BOOT_PRECISE:
         print(f"bootstrap (c) errors between the phases: {boot_phase_errors(ctx, sk, keys, ct)}")
         raise AssertionError(f"bootstrap (c) at N={n_full}: error {err_c} above {TOL_BOOT_PRECISE}")
+    torch.cuda.reset_peak_memory_stats(dev)
     ms, phase_ms, runs = time_bootstrap(ctx, keys, ct)
+    peak = torch.cuda.max_memory_allocated(dev)
     print(f"time bootstrap N={n_full}: {ms:.3f} ms (median of {len(runs)}: "
           + ", ".join(f"{r:.3f}" for r in runs) + "); phases "
-          + ", ".join(f"{k} {v:.3f}" for k, v in phase_ms.items()) + f" ms [{card}]")
+          + ", ".join(f"{k} {v:.3f}" for k, v in phase_ms.items()) + f" ms; peak memory_allocated "
+          f"{peak / 1e9:.3f} GB [{card}]")
     boot_prof = {}
     print_profile(f"bootstrap N={n_full}", lambda: ckks_boot.regular_bootstrap(ctx, ct, keys), 1,
                   card, boot_prof, "bootstrap")
@@ -1538,9 +1559,10 @@ def bootstrap_phases(dev, card, errs, gen, n_mid=1 << 13, n_full=1 << 16):
         "max_abs_err": err_c, "p99_abs_err": p99_c, "ms": ms, "runs_ms": runs,
         "phase_ms": phase_ms, "keygen_s": keygen_s, "resident_bytes": resident,
         "key_bytes": kb, "galois_keys": len(keys.gk.keys), "pieces": pieces,
-        "launches": launches, "profile": boot_prof,
+        "launches": launches, "profile": boot_prof, "peak_bytes": peak,
         "plain_device_ms_by_step": steps, "kernels": shapes,
         "seconds": time.perf_counter() - t0}
+    rec["out_c"] = out.c   # phase 21 holds the sharded bootstrap against it
     full_bytes = sum(kb.values())
     del keys, out, fargs, dd, k0, k1, zc, x54
     torch.cuda.empty_cache()
@@ -3546,6 +3568,159 @@ def ckks_sharded_phase(dev, card, errs, gen, ctx, rk, ct1, ct2):
     return launches, rec
 
 
+# The limb-sharded bootstrap (phase 21): (a) tests/test_boot_sharded.py's
+# configuration at N=256 (sixteen 29-bit primes, Method II with alpha 2 and four
+# special primes, Taylor degree 3, one squaring, 2 + 2 pieces, keys with
+# limb_align=4), card against CPU; (b) phase 13 (c)'s depth-48 bootstrap at the
+# main path's N, its keys and input made again from the same seed.
+SH_Q_BITS = [29] * 16
+SH_CTX = dict(scale_bits=28, ks_type="II", alpha=2, p_count=4)
+SH_CFG = dict(taylor_degree=3, exp_squarings=1, ctos_pieces=2, stoc_pieces=2)
+
+
+def boot_sharded_phase(dev, card, errs, boot_c, boot_rec):
+    """Phase 21: the limb-sharded bootstrap (parallel/boot_sharded.py) on a
+    one-rank NCCL group (the box has one card: no exchange runs on the card;
+    the gloo tests hold the exchanges on the CPU), the keys placed by
+    shard_pytree_limb_axis and the input by shard_array_limb_axis.  (a) N=256:
+    the card's sharded coeff_to_slot and regular_bootstrap equal to the CPU
+    plain path's unsharded results.  (b) Depth 48 at N: the sharded
+    regular_bootstrap on phase 13 (c)'s keys and input (made again from its
+    seed), launches counted from 0, every launch held against plain, K5 never
+    launched, one K6 launch a ÷P site; its residues equal to phase 13 (c)'s
+    output (boot_c), its error under TOL_BOOT_PRECISE; the placement's added
+    bytes, the peak memory_allocated against phase 13 (c)'s, device busy, wall
+    and idle share of one sharded bootstrap against one unsharded.  (c) Misuse:
+    a plain-tensor ciphertext raises TypeError, a stripped key
+    ParameterError.  Returns (launches of (b), record)."""
+    import dataclasses
+    import socket
+    import torch
+    import torch.distributed as dist
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks, ckks_boot, ringkit
+    from heongpu_tpu_torch.parallel import boot_sharded as bs
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.parallel import multihost
+    from heongpu_tpu_torch.utils import errors
+    rec = {}
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    multihost.init_process(f"127.0.0.1:{port}", 0, 1)
+    try:
+        mesh = meshlib.make_mesh(1)
+        place = lambda ct: ckks.Ciphertext(meshlib.shard_array_limb_axis(ct.c, mesh), ct.size,
+                                           ct.level, ct.scale)
+        # -- 21. (a) N=256, card against CPU ---------------------------------------------
+        t0 = time.perf_counter()
+        cctx, _, ckeys, cct, _, _ = boot_setup(256, SH_Q_BITS, SH_CTX, SH_CFG, 16, 24, dev,
+                                               key_dev="cpu", limb_align=PAR_ALIGN)
+        raised = ckks_boot.mod_raise(cctx, cct, 1)
+        cpu = ckks_boot.coeff_to_slot(cctx, raised, ckeys) + (
+            ckks_boot.regular_bootstrap(cctx, cct, ckeys),)
+        dctx = ckks.make_context(256, SH_Q_BITS, device=dev, **SH_CTX)
+        dkeys = meshlib.shard_pytree_limb_axis(boot_keys_to(ckeys, dev), mesh)
+        dct = place(ckks.Ciphertext(cct.c.to(dev), cct.size, cct.level, cct.scale))
+        what = "boot_sharded (a) N=256 one-rank NCCL group"
+        kernels.reset_launches()
+        with held_against_plain(what, errs), div_round_sites(what):
+            got = bs.coeff_to_slot(dctx, bs.mod_raise(dctx, dct, 1), dkeys) + (
+                bs.regular_bootstrap(dctx, dct, dkeys),)
+            torch.cuda.synchronize()
+            launches_a = dict(kernels.launches)
+        same_a = [torch.equal(g.c.to_local().cpu(), w.c) and g.level == w.level
+                  for g, w in zip(got, cpu)]
+        print(f"{what}: {SH_CFG}, limb_align={PAR_ALIGN}: sharded t0, t1 and bootstrap "
+              f"identical to the CPU plain path's unsharded results: {same_a}; launches "
+              f"{launches_a}; {time.perf_counter() - t0:.1f} s")
+        if not all(same_a) or launches_a["keyswitch2_fused"]:
+            raise AssertionError(f"boot_sharded (a): card and CPU differ, or K5 launched")
+        rec["n256"] = {"identical_to_cpu": same_a, "launches": launches_a}
+
+        # -- 21. (c) misuse --------------------------------------------------------------
+        misuse = {}
+        try:
+            bs.regular_bootstrap(dctx, ckks.Ciphertext(dct.c.to_local(), 2, dct.level,
+                                                       dct.scale), dkeys)
+        except TypeError as e:
+            misuse["plain_tensor"] = type(e).__name__
+        stripped = ringkit.GaloisKey({e: dataclasses.replace(k, k1=None, a_seed=1)
+                                      for e, k in dkeys.gk.keys.items()})
+        try:
+            bs.regular_bootstrap(dctx, dct, dataclasses.replace(dkeys, gk=stripped))
+        except errors.ParameterError as e:
+            misuse["stripped_key"] = type(e).__name__
+        print(f"boot_sharded (c) misuse: {misuse}")
+        if set(misuse) != {"plain_tensor", "stripped_key"}:
+            raise AssertionError(f"boot_sharded (c): a misuse did not raise: {misuse}")
+        rec["misuse"] = misuse
+        del cctx, ckeys, cct, raised, cpu, dctx, dkeys, dct, got
+
+        # -- 21. (b) depth 48 at N, phase 13 (c)'s keys and input ----------------------------
+        t0 = time.perf_counter()
+        ctx, sk, keys, ct, z, keygen_s = boot_setup(N, BOOT_Q_BITS, BOOT_CTX, BOOT_CFG, BOOT_HW,
+                                                    23, dev)
+        torch.cuda.synchronize()
+        remade_s = time.perf_counter() - t0
+        mem0 = torch.cuda.memory_allocated(dev)
+        skeys, sct = meshlib.shard_pytree_limb_axis(keys, mesh), place(ct)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated(dev) - mem0
+        what = f"boot_sharded (b) N={N} depth {len(BOOT_Q_BITS)} one-rank NCCL group"
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        with held_against_plain(what, errs), div_round_sites(what) as sites:
+            out = bs.regular_bootstrap(ctx, sct, skeys)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        held_s = time.perf_counter() - t1
+        local = out.c.to_local()
+        same = torch.equal(local, boot_c) and out.level == keys.out_level
+        err, p99 = boot_error(ctx, sk, ckks.Ciphertext(local, out.size, out.level, out.scale), z)
+        print(f"{what}: residues identical to phase 13 (c)'s unsharded output: {same}; max error "
+              f"{err:.3e} (limit {TOL_BOOT_PRECISE}), p99 {p99:.3e}; launches {launches}; ÷P "
+              f"sites {dict(sites)}; held against plain {held_s:.1f} s; keys and input made "
+              f"again in {remade_s:.1f} s (keygen {keygen_s:.1f} s); placing them added "
+              f"{placed} bytes [{card}]")
+        if not same or not err < TOL_BOOT_PRECISE:
+            raise AssertionError(f"boot_sharded (b): residues differ from phase 13 (c)'s, or the "
+                                 f"error {err} is above {TOL_BOOT_PRECISE}")
+        require_launched(what, launches, ("ntt_fwd", "ntt_inv", "mac_keys", "base_conv",
+                                          "div_round"))
+        if launches["keyswitch2_fused"]:
+            raise AssertionError(f"boot_sharded (b): K5 launched: {launches}")
+        timed = {}
+        for name, fn in (("sharded", lambda: bs.regular_bootstrap(ctx, sct, skeys)),
+                         ("unsharded", lambda: ckks_boot.regular_bootstrap(ctx, ct, keys))):
+            torch.cuda.reset_peak_memory_stats(dev)
+            busy, wall, idle, per_kernel = device_idle_share(fn, 1)
+            timed[name] = {"busy_ms": busy, "wall_ms": wall, "idle_share": idle,
+                           "kernel_ms": own_kernels(per_kernel),
+                           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        peak13 = boot_rec[f"n{N}"]["peak_bytes"]
+        print(f"time boot_sharded (b): sharded on one rank busy {fmt_ms(timed['sharded']['busy_ms'])}"
+              f" ms, wall {timed['sharded']['wall_ms']:.3f} ms, idle share "
+              f"{fmt_ms(timed['sharded']['idle_share'])}; unsharded busy "
+              f"{fmt_ms(timed['unsharded']['busy_ms'])} ms, wall "
+              f"{timed['unsharded']['wall_ms']:.3f} ms, idle share "
+              f"{fmt_ms(timed['unsharded']['idle_share'])}; peak memory_allocated sharded "
+              f"{timed['sharded']['peak_bytes'] / 1e9:.3f} GB, unsharded "
+              f"{timed['unsharded']['peak_bytes'] / 1e9:.3f} GB, phase 13 (c) "
+              f"{peak13 / 1e9:.3f} GB; hand-written kernels, device ms sharded "
+              f"{timed['sharded']['kernel_ms']} [{card}]")
+        rec[f"n{N}"] = {"identical_to_phase13": same, "max_abs_err": err, "p99_abs_err": p99,
+                        "launches": launches, "sites": dict(sites), "placed_bytes": placed,
+                        "remade_s": remade_s, "held_s": held_s, "timed": timed,
+                        "phase13_peak_bytes": peak13, "seconds": time.perf_counter() - t0}
+    finally:
+        dist.destroy_process_group()
+    del ctx, sk, keys, ct, skeys, sct, out, local
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3977,11 +4152,16 @@ def run(dev) -> int:
     native_rec = native_phase(card)
     sh_launches, sh_rec = ckks_sharded_phase(dev, card, errs, gen, ctx, rk, ct1, ct2)
     print(f"phase 20: {time.perf_counter() - t20:.1f} s")
-    # each kernel's launches on the twelve paths, each run counted from 0 just before it
+    # -- 21. the limb-sharded bootstrap -------------------------------------------------------
+    t21 = time.perf_counter()
+    bsh_launches, bsh_rec = boot_sharded_phase(dev, card, errs, boot_rec.pop("out_c"), boot_rec)
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s")
+    # each kernel's launches on the thirteen paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
                 + v2_launches[k] + bfv_launches[k] + m1_launches[k] + bgv_launches[k]
-                + mpc_launches[k] + par_launches[k] + sh_launches[k] for k in launches}
+                + mpc_launches[k] + par_launches[k] + sh_launches[k] + bsh_launches[k]
+                for k in launches}
     # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's, its
     # raw-words mode at MPC BFV's widest draw (a relin round's gaussian, (29, 2^15))
     k7_kern = boot_rec["compressed"]["kernels"]
@@ -4073,6 +4253,7 @@ def run(dev) -> int:
               "parallel_launches": par_launches, "parallel": par_rec,
               "utilities": util_rec, "native": native_rec,
               "ckks_sharded_launches": sh_launches, "ckks_sharded": sh_rec,
+              "boot_sharded_launches": bsh_launches, "boot_sharded": bsh_rec,
               "div_round_runs": DIV_ROUND_RUNS}
     busy = {"CKKS mult+relin (Method II)": ckks_prof,
             "CKKS mult+relin, Method I": m1_rec["profile"],

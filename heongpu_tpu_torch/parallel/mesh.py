@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..utils.storage import map_tensors
 
@@ -53,8 +53,23 @@ class Sharding:
     placements: tuple
 
     def place(self, x: torch.Tensor):
-        """x, the same full tensor on every rank, as a DTensor of this layout."""
-        return distribute_tensor(x, self.mesh, list(self.placements))
+        """x, the same full tensor on every rank, as a DTensor of this layout:
+        each rank keeps its own block of x (torch.chunk's, as
+        distribute_tensor cuts it, made contiguous) and sends nothing.  Where
+        the block is all of x (replicated, or a one-rank axis) it is x itself:
+        a key set placed on one rank takes no second copy."""
+        if x.device.type != self.mesh.device_type:
+            x = x.to(self.mesh.device_type)
+        local, coord = x, self.mesh.get_coordinate()
+        if coord is None:   # a rank off the mesh holds nothing
+            local, coord = x.new_empty(0), ()
+        for i, pl in enumerate(self.placements):
+            if pl.is_shard() and self.mesh.size(i) > 1:
+                parts = torch.chunk(local, self.mesh.size(i), pl.dim)
+                local = parts[coord[i]] if coord[i] < len(parts) else local.narrow(pl.dim, 0, 0)
+                local = local.contiguous()
+        return DTensor.from_local(local, self.mesh, list(self.placements), run_check=False,
+                                  shape=x.shape, stride=x.stride())
 
 
 def _sharding(mesh: DeviceMesh, dims: dict) -> Sharding:

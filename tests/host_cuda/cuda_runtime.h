@@ -1,6 +1,6 @@
 // Host stand-ins for the CUDA names that kernels/csrc/tfhe.cu, keyswitch.cu, ntt.cu,
 // mac.cu, divround.cu and threefry.cu use, so that their device code compiles with a C++20 host
-// compiler and runs one block at a time with one std::thread per CUDA thread
+// compiler and runs one block at a time with one fiber per CUDA thread (fibers.h)
 // (tests/test_torch_tfhe_host_kernel.py, tests/test_torch_keyswitch_host_kernel.py,
 // tests/test_torch_ntt_host_kernel.py, tests/test_torch_rns_host_kernel.py,
 // tests/test_torch_threefry_host_kernel.py).

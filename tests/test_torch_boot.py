@@ -79,6 +79,12 @@ def test_dft_factorization_matches_reference(n):
 # the key set from one DRBG seed
 # ---------------------------------------------------------------------------
 
+# XLA options that cut the compile time of the reference's exact integer
+# programs (key generation, the bootstrapping blocks); integer arithmetic gives
+# the same bits at every optimization level.  Never for its float encoders.
+XLA_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
 def keys_compiled(fn, *args, **kw):
     """fn(*args, **kw) of the reference with its key generation
     (ckks_boot.leveled_boot_keys, which the key-set builders call) compiled
@@ -88,7 +94,8 @@ def keys_compiled(fn, *args, **kw):
     eager = jboot.leveled_boot_keys
 
     def compiled(ctx, key, sk, pieces, aux_lvl, **k):
-        return jax.jit(lambda s: eager(ctx, key, s, pieces, aux_lvl, **k))(sk)
+        return jax.jit(lambda s: eager(ctx, key, s, pieces, aux_lvl, **k),
+                       compiler_options=XLA_FAST)(sk)
 
     jboot.leveled_boot_keys = compiled
     try:

@@ -11,16 +11,28 @@ eval_exp_sin, slot_to_coeff and regular_bootstrap must return the
 reference's residues.  The reference blocks run under jax.jit (its own
 tests/test_boot_sharded.py does the same for coeff_to_slot); the reference's
 regular_bootstrap is its four-line composition of those blocks (mod_raise,
-coeff_to_slot, eval_exp_sin twice, slot_to_coeff), run here block by block.
+coeff_to_slot, eval_exp_sin twice, slot_to_coeff), run here block by block,
+and coeff_to_slot its composition of matvec_piece and ctos_finish.
 
 The minimal configuration (tests/test_boot_sharded.py: N=256, sixteen 29-bit
 primes, alpha 2, p_count 4, Taylor degree 3, one squaring, 2 + 2 pieces)
 runs in the fast suite; the precision configuration of
 tests/test_ckks_boot.py (44 primes, composite q0, composite-scale pieces, the
 arcsine term) compiles for several minutes on the JAX side and is marked
-slow."""
+slow.
+
+The limb-sharded bootstrap (parallel/boot_sharded.py) is held against the
+same reference chain: four gloo ranks (tests/torch_parallel_ranks.py, one
+start, begun before the reference compiles) place the carried keys on a
+1 x 4 ('dp', 'limb') mesh by shard_pytree_limb_axis (not generated with
+limb_align, so the keys whose QP extent 4 divides split and the others stay
+whole on every rank) and run mod_raise, coeff_to_slot, eval_exp_sin twice,
+slot_to_coeff and regular_bootstrap on the input placed by
+shard_array_limb_axis.  Each rank's shard must equal the same rows of the
+reference's result, and no rank may receive a row of a key."""
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +41,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_parallel_ranks as ranks  # noqa: E402
 from heongpu_tpu.models import ckks as jckks  # noqa: E402
 from heongpu_tpu.models import ckks_boot as jboot  # noqa: E402
 from heongpu_tpu.models import ringkit as jringkit  # noqa: E402
@@ -36,10 +49,12 @@ from heongpu_tpu_torch import interop  # noqa: E402
 from heongpu_tpu_torch.models import ckks as tckks  # noqa: E402
 from heongpu_tpu_torch.models import ckks_boot as tboot  # noqa: E402
 from heongpu_tpu_torch.utils import rng as trng  # noqa: E402
+from test_torch_boot import XLA_FAST  # noqa: E402
 
 torch.set_num_threads(2)
 
 N = 256
+WORLD = 4
 MINIMAL = dict(q_bits=[29] * 16, ctx=dict(scale_bits=28, sec_level="none", ks_type="II",
                                           alpha=2, p_count=4),
                cfg=dict(taylor_degree=3, exp_squarings=1, ctos_pieces=2, stoc_pieces=2))
@@ -118,22 +133,48 @@ def _both_sides(conf, seed):
 
 
 def _reference_chain(jctx, jkeys, jct):
-    """The reference's blocks, each under jax.jit, in regular_bootstrap's order."""
+    """The reference's blocks, each under jax.jit (XLA_FAST: exact integer
+    arithmetic, the same bits at every optimization level), in
+    regular_bootstrap's order; coeff_to_slot as the reference composes it,
+    each CtoS piece's matvec_piece (w1: the first), then ctos_finish."""
+    jit = lambda f: jax.jit(f, compiler_options=XLA_FAST)
     raised = jboot.mod_raise(jctx, jct, jkeys.cfg.base_count)
-    t0, t1 = jax.jit(lambda c, k: jboot.coeff_to_slot(jctx, c, k))(raised, jkeys)
-    evalmod = jax.jit(lambda c, k: jboot.eval_exp_sin(jctx, c, k))
+    w, ws = raised, []
+    for i in range(len(jkeys.ctos_pieces)):
+        w = jit(lambda c, k, i=i: jboot.matvec_piece(jctx, c, k.ctos_pieces[i], k.gk))(w, jkeys)
+        ws.append(w)
+    t0, t1 = jit(lambda c, k: jboot.ctos_finish(jctx, c, k))(w, jkeys)
+    evalmod = jit(lambda c, k: jboot.eval_exp_sin(jctx, c, k))
     s0, s1 = evalmod(t0, jkeys), evalmod(t1, jkeys)
-    out = jax.jit(lambda a, b, k: jboot.slot_to_coeff(jctx, a, b, k))(s0, s1, jkeys)
-    return dict(raised=raised, t0=t0, t1=t1, s0=s0, s1=s1, out=out)
+    out = jit(lambda a, b, k: jboot.slot_to_coeff(jctx, a, b, k))(s0, s1, jkeys)
+    return dict(raised=raised, w1=ws[0], t0=t0, t1=t1, s0=s0, s1=s1, out=out)
 
 
 @pytest.fixture(scope="module")
-def minimal():
-    tctx, jctx, keys, jkeys, carried, jct = _both_sides(MINIMAL, 5)
-    ref = _reference_chain(jctx, jkeys, jct)
-    ref["w1"] = jax.jit(lambda c, k: jboot.matvec_piece(jctx, c, k.ctos_pieces[0], k.gk))(
-        ref["raised"], jkeys)
-    return tctx, jctx, keys, carried, jct, ref
+def sides():
+    return _both_sides(MINIMAL, 5)
+
+
+@pytest.fixture(scope="module")
+def ranks_running(sides, tmp_path_factory):
+    """The gloo ranks of the sharded bootstrap on the carried keys, started
+    before the reference compiles (they need only the keys and the input),
+    as a future of their results."""
+    _, _, _, _, carried, jct = sides
+    case = {"name": "carried", "ctx_args": (N, MINIMAL["q_bits"]), "ctx_kw": MINIMAL["ctx"],
+            "keys": carried, "c": _ct(jct).c, "blocks": True}
+    pool = ThreadPoolExecutor(1)
+    yield pool.submit(ranks.spawn, "boot_sharded", WORLD, tmp_path_factory.mktemp("boot_sh"),
+                      {"cases": [case]})
+    pool.shutdown()
+
+
+@pytest.fixture(scope="module")
+def minimal(sides, ranks_running):
+    """Both sides and the reference chain; it asks for ranks_running so that
+    the ranks start before the reference compiles."""
+    tctx, jctx, keys, jkeys, carried, jct = sides
+    return tctx, jctx, keys, carried, jct, _reference_chain(jctx, jkeys, jct)
 
 
 def test_keys_carried_across_unchanged(minimal):
@@ -189,6 +230,50 @@ def test_regular_bootstrap_matches_reference(minimal):
     assert out.level == keys.out_level
     # the port's own keys (not carried) give the same residues
     assert torch.equal(tboot.regular_bootstrap(tctx, _ct(jct), keys).c, out.c)
+
+
+@pytest.fixture(scope="module")
+def sharded(ranks_running):
+    return [r["carried"] for r in ranks_running.result()]
+
+
+def _shard(full, placements, r):
+    """Rank r's rows of a (size, L, N) result placed as `placements` on the
+    1 x 4 mesh: its quarter where the limb axis is sharded, all rows where
+    it is replicated; the layout must follow shard_array_limb_axis's rule."""
+    rows = full.shape[-2]
+    assert placements[1].is_shard() == (rows % WORLD == 0), (rows, placements)
+    m = rows // WORLD
+    return full[:, r * m:(r + 1) * m] if placements[1].is_shard() else full
+
+
+@pytest.mark.parametrize("step", ("raised", "t0", "t1", "s0", "s1", "stoc", "out"))
+def test_sharded_bootstrap_matches_reference(minimal, sharded, step):
+    """Each rank's shard of the sharded mod_raise, coeff_to_slot (t0, t1),
+    eval_exp_sin (s0, s1), slot_to_coeff (stoc) and regular_bootstrap (out)
+    equals the same rows of the reference's blocks, level and scale too."""
+    want = minimal[-1]["out" if step == "stoc" else step]
+    full = np.asarray(want.c)
+    for r in range(WORLD):
+        local, placements, level, scale = sharded[r]["steps"][step]
+        np.testing.assert_array_equal(_np(local), _shard(full, placements, r))
+        assert (level, scale) == (want.level, want.scale)
+
+
+def test_sharded_bootstrap_moves_no_key_row(minimal, sharded):
+    """The carried keys split where 4 divides their QP extent and stay whole
+    elsewhere; the ranks exchanged rows, none of them a key's; a plain-tensor
+    ciphertext raises TypeError and a stripped key ParameterError."""
+    _, _, keys, _, _, _ = minimal
+    for r in range(WORLD):
+        got = sharded[r]
+        split = {e: rows for e, (shape, rows) in got["key_local"].items() if shape[1] < rows}
+        assert split and len(split) < len(keys.gk.keys), got["key_local"]
+        for e, (shape, rows) in got["key_local"].items():
+            assert shape[1] == (rows // WORLD if rows % WORLD == 0 else rows), (e, shape, rows)
+        assert got["received_rows"] > 0 and got["received_key_rows"] == 0, got
+        assert "DTensor" in got["misuse"]["plain_tensor"]
+        assert "both halves" in got["misuse"]["stripped"]
 
 
 @pytest.mark.slow

@@ -44,6 +44,7 @@ from heongpu_tpu_torch.models import ckks_boot as tboot  # noqa: E402
 from heongpu_tpu_torch.models import ckks_boot_ext as text  # noqa: E402
 from heongpu_tpu_torch.ops import polyops as tpoly  # noqa: E402
 from heongpu_tpu_torch.utils import rng as trng  # noqa: E402
+from test_torch_boot import XLA_FAST  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -104,7 +105,7 @@ def _carried(jkeys):
 
 def _ref(fn, *cts):
     """The reference's fn(*cts) on ciphertexts, compiled as one program."""
-    return jax.jit(fn)(*cts)
+    return jax.jit(fn, compiler_options=XLA_FAST)(*cts)
 
 
 def _same(got, want):

@@ -166,14 +166,15 @@ def test_port_rejects_misuse(chain):
 def test_port_imports_no_jax():
     """Every module of heongpu_tpu_torch, imported in a fresh interpreter,
     loads neither jax nor the JAX package; the walk reaches the
-    bootstrapping modules, BFV and the logic gates."""
+    bootstrapping modules, BFV, the logic gates and the sharded bootstrap."""
     code = ("import importlib, pkgutil, sys, heongpu_tpu_torch as pkg; "
             "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'heongpu_tpu_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
             "bad = [m for m in sys.modules if m in ('jax', 'heongpu_tpu') "
             "or m.startswith(('jax.', 'heongpu_tpu.'))]; "
-            "need = {'heongpu_tpu_torch.models.' + m for m in "
-            "('ckks_boot', 'ckks_boot_ext', 'poly_eval', 'bfv', 'logic')}; "
+            "need = {'heongpu_tpu_torch.' + m for m in "
+            "('models.ckks_boot', 'models.ckks_boot_ext', 'models.poly_eval', 'models.bfv', "
+            "'models.logic', 'parallel.ckks_sharded', 'parallel.boot_sharded')}; "
             "print(len(mods), bad, need - set(mods)); "
             "sys.exit(1 if bad or len(mods) < 20 or need - set(mods) else 0)")
     root = Path(__file__).resolve().parents[1]

@@ -1,14 +1,15 @@
 """The source of the fused keyswitch kernel K5 (kernels/csrc/keyswitch.cu),
 compiled for the host and run on the CPU: each CUDA thread of a block is a
-std::thread, __syncthreads and __syncwarp are std::barriers, and the grid is
-one block (gridDim 1), so each phase's work-item loop covers every item and
-the grid-wide barrier between phases is the block barrier (tests/host_cuda/).
+fiber on one OS thread, __syncthreads and __syncwarp are barriers between
+them (tests/host_cuda/fibers.h), and the grid is one block (gridDim 1), so
+each phase's work-item loop covers every item and the grid-wide barrier
+between phases is the block barrier.
 The kernel's register transforms, column exchanges, swizzled tiles, index
 arithmetic and MAC must give keyswitch2_fused_core_plain's bits: at N=256
 (n1 = n2 = 16) and N=2048 (32 x 64) for two digit structures, at N=4096
 (64 x 64) with 3 digits over 16 limbs, and at N=2^16 (256 x 256) with a short
 last digit group.  No jax.  Skips where no C++20 host compiler with
-<barrier> is installed."""
+<ucontext.h> is installed."""
 
 import ctypes
 import shutil
@@ -32,14 +33,13 @@ torch.set_num_threads(2)
 
 SHIMS = Path(__file__).resolve().parent / "host_cuda"
 HARNESS = """#include <cuda_runtime.h>
-#include <barrier>
+#include <fibers.h>
 #include <memory>
-#include <thread>
 #include <vector>
 namespace { alignas(16) uint32_t sm[1 << 16]; }
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
-static std::barrier<>* g_block;
-static std::barrier<>* g_warp[32];
+static Barrier* g_block;
+static Barrier* g_warp[32];
 void __syncthreads() { g_block->arrive_and_wait(); }
 void __syncwarp(unsigned) { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
 """
@@ -48,23 +48,20 @@ template <int L1, int L2>
 int host_launch(const Params& P, cudaStream_t) {
   static_assert(Layout<L1, L2>::kWords <= (1 << 16), "shared memory stand-in too small");
   memset(sm, 0xAB, sizeof(sm));
-  std::barrier<> block(kThreads);
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  Barrier block(kThreads);
+  std::vector<std::unique_ptr<Barrier>> warps;
   for (int w = 0; w < kThreads / 32; ++w) {
-    warps.emplace_back(new std::barrier<>(32));
+    warps.emplace_back(new Barrier(32));
     g_warp[w] = warps.back().get();
   }
   g_block = &block;
-  std::vector<std::thread> threads;
-  for (int t = 0; t < kThreads; ++t)
-    threads.emplace_back([=] {
-      threadIdx.x = t;
-      blockIdx.x = 0;
-      blockDim.x = kThreads;
-      gridDim.x = 1;
-      keyswitch2_fused_kernel<L1, L2>(P);
-    });
-  for (auto& th : threads) th.join();
+  run_threads(kThreads, [=](int t) {
+    threadIdx.x = t;
+    blockIdx.x = 0;
+    blockDim.x = kThreads;
+    gridDim.x = 1;
+    keyswitch2_fused_kernel<L1, L2>(P);
+  });
   return 0;
 }
 """
@@ -87,11 +84,11 @@ def host_lib(tmp_path_factory):
         pytest.skip("no host C++ compiler")
     d = tmp_path_factory.mktemp("host_keyswitch")
     probe = d / "probe.cpp"
-    probe.write_text("#include <barrier>\n"
-                     "int main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
+    probe.write_text("#include <ucontext.h>\n"
+                     "int main() { ucontext_t c; return getcontext(&c); }\n")
     if subprocess.run([cxx, "-std=c++20", "-pthread", "-o", str(d / "probe"), str(probe)],
                       capture_output=True).returncode:
-        pytest.skip("the host compiler has no C++20 <barrier>")
+        pytest.skip("the host compiler has no C++20 or no <ucontext.h>")
     cpp = d / "keyswitch_host.cpp"
     cpp.write_text(host_source((build.CSRC / "keyswitch.cu").read_text()))
     so = d / "libkeyswitch_host.so"

@@ -1,6 +1,7 @@
 """The source of the NTT kernel K1 (kernels/csrc/ntt.cu), compiled for the host
-and run on the CPU: each CUDA thread of a block is a std::thread, __syncthreads
-and __syncwarp are std::barriers (tests/host_cuda/), and each of the four pass
+and run on the CPU: each CUDA thread of a block is a fiber on one OS thread,
+__syncthreads and __syncwarp are barriers between them
+(tests/host_cuda/fibers.h), and each of the four pass
 kernels runs over its whole grid, the 256 threads walking the blocks in turn
 with a block barrier between two blocks.  The kernels' register transforms,
 column exchanges, swizzled tiles, transposed writes and index arithmetic must
@@ -9,7 +10,7 @@ forward, at each of the nine shapes of the kernel: N = 2^8 and 2^9 (3 limbs,
 2 polys), the TFHE table (N = 2^10, 2 limbs, 2 polys), N = 2^11 (4 limbs), a
 leveled concatenated table at N = 2^12 (limbs 0-2 and 4-5, 2 polys), and
 N = 2^13 .. 2^16 (2 limbs).  No jax.  Skips where no C++20 host compiler with
-<barrier> is installed."""
+<ucontext.h> is installed."""
 
 import ctypes
 import shutil
@@ -31,44 +32,40 @@ torch.set_num_threads(2)
 
 SHIMS = Path(__file__).resolve().parent / "host_cuda"
 HARNESS = """#include <cuda_runtime.h>
-#include <barrier>
+#include <fibers.h>
 #include <memory>
-#include <thread>
 #include <vector>
 namespace { alignas(16) uint32_t sm[1 << 16]; }
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
-static std::barrier<>* g_block;
-static std::barrier<>* g_warp[32];
+static Barrier* g_block;
+static Barrier* g_warp[32];
 void __syncthreads() { g_block->arrive_and_wait(); }
 void __syncwarp(unsigned) { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
 """
 LAUNCH = """
-// Runs kern over `blocks` blocks: kThreads std::threads walk the blocks in turn, and
+// Runs kern over `blocks` blocks: kThreads fibers walk the blocks in turn, and
 // between two blocks thread 0 fills the shared memory with a pattern.
 template <class F>
 void run_grid(int blocks, F kern) {
-  std::barrier<> block(kThreads);
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  Barrier block(kThreads);
+  std::vector<std::unique_ptr<Barrier>> warps;
   for (int w = 0; w < kThreads / 32; ++w) {
-    warps.emplace_back(new std::barrier<>(32));
+    warps.emplace_back(new Barrier(32));
     g_warp[w] = warps.back().get();
   }
   g_block = &block;
-  std::vector<std::thread> threads;
-  for (int t = 0; t < kThreads; ++t)
-    threads.emplace_back([=, &block] {
-      threadIdx.x = t;
-      blockDim.x = kThreads;
-      gridDim.x = blocks;
-      for (int b = 0; b < blocks; ++b) {
-        if (t == 0) memset(sm, 0xAB, sizeof(sm));
-        block.arrive_and_wait();
-        blockIdx.x = b;
-        kern();
-        block.arrive_and_wait();
-      }
-    });
-  for (auto& th : threads) th.join();
+  run_threads(kThreads, [=, &block](int t) {
+    threadIdx.x = t;
+    blockDim.x = kThreads;
+    gridDim.x = blocks;
+    for (int b = 0; b < blocks; ++b) {
+      if (t == 0) memset(sm, 0xAB, sizeof(sm));
+      block.arrive_and_wait();
+      blockIdx.x = b;
+      kern();
+      block.arrive_and_wait();
+    }
+  });
 }
 
 template <int L1, int L2>
@@ -118,11 +115,11 @@ def host_lib(tmp_path_factory):
         pytest.skip("no host C++ compiler")
     d = tmp_path_factory.mktemp("host_ntt")
     probe = d / "probe.cpp"
-    probe.write_text("#include <barrier>\n"
-                     "int main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
+    probe.write_text("#include <ucontext.h>\n"
+                     "int main() { ucontext_t c; return getcontext(&c); }\n")
     if subprocess.run([cxx, "-std=c++20", "-pthread", "-o", str(d / "probe"), str(probe)],
                       capture_output=True).returncode:
-        pytest.skip("the host compiler has no C++20 <barrier>")
+        pytest.skip("the host compiler has no C++20 or no <ucontext.h>")
     cpp = d / "ntt_host.cpp"
     cpp.write_text(host_source((build.CSRC / "ntt.cu").read_text()))
     so = d / "libntt_host.so"

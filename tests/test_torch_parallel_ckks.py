@@ -31,6 +31,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 import torch_parallel_ranks as ranks  # noqa: E402
 from heongpu_tpu.models import ckks as jckks  # noqa: E402
 from heongpu_tpu_torch import interop  # noqa: E402
+from test_torch_boot import XLA_FAST  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -45,7 +46,6 @@ CASES = {
                                                        alpha=4, p_count=4), 2, True),
 }
 OPS = ("mult0", "relin0", "rescale", "mult1", "relin1")
-XLA_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < WORLD, reason="needs 4 CPU devices")
 

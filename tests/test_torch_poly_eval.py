@@ -28,6 +28,7 @@ from heongpu_tpu_torch import interop  # noqa: E402
 from heongpu_tpu_torch.models import ckks as tckks  # noqa: E402
 from heongpu_tpu_torch.models import ckks_boot_ext as text  # noqa: E402
 from heongpu_tpu_torch.models import poly_eval as tpe  # noqa: E402
+from test_torch_boot import XLA_FAST  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -89,7 +90,7 @@ def sides():
 def test_gen_powers_match_reference(sides):
     jctx, tctx, jct, tct, rk, trk, _, _ = sides
     got = tpe.gen_powers(tctx, tct, 7, trk)
-    want = jax.jit(lambda c: jpe.gen_powers(jctx, c, 7, rk))(jct)
+    want = jax.jit(lambda c: jpe.gen_powers(jctx, c, 7, rk), compiler_options=XLA_FAST)(jct)
     assert sorted(got) == sorted(want) == list(range(1, 8))
     for j in want:
         _same(got[j], want[j])
@@ -108,7 +109,8 @@ def test_eval_poly_bsgs_matches_reference(sides, poly):
         coeffs = ODD()
         want_values = np.sin(2 * z)
     got = tpe.eval_poly_bsgs(tctx, tct, coeffs, trk)
-    _same(got, jax.jit(lambda c: jpe.eval_poly_bsgs(jctx, c, coeffs, rk))(jct))
+    _same(got, jax.jit(lambda c: jpe.eval_poly_bsgs(jctx, c, coeffs, rk),
+                       compiler_options=XLA_FAST)(jct))
     assert got.level <= 6  # log depth, not Horner's
     dec = tckks.decode(tctx, tckks.decrypt(tctx, tsk, got)).real
     assert np.abs(dec - want_values).max() < 1e-4

@@ -1,8 +1,9 @@
 """The sources of the base-conversion kernel K2 (kernels/csrc/mac.cu, base_conv)
 and of the ÷P kernel K6 (kernels/csrc/divround.cu), compiled for the host and run
-on the CPU: each CUDA thread of a block is a std::thread, __syncthreads is a
-std::barrier (tests/host_cuda/), and each launch runs over its whole grid, the
-256 threads walking the blocks in turn with a block barrier between two.  The
+on the CPU: each CUDA thread of a block is a fiber on one OS thread,
+__syncthreads a barrier between them (tests/host_cuda/fibers.h), and each
+launch runs over its whole grid, the 256 threads walking the blocks in turn
+with a block barrier between two.  The
 kernels' shared-memory tables, register columns, folds, output-limb split and
 index arithmetic must give the plain versions' bits (rns.base_conv_plain,
 rns.div_round_chain_plain): base_conv at every chunk width it is built for, at
@@ -11,7 +12,7 @@ fused scaling, B = 1 and 3, at N = 256 and 4096, and at N = 2^16 where a block
 takes several output limbs; K6 with p = 1 to 16 special primes over k = 1 to 48
 Q limbs (every remainder of k by the 8 Q limbs a block takes) at N = 256 and
 4096, with primes just under 2^30, and a chain of 20 in two pieces.  No jax.  Skips
-where no C++20 host compiler with <barrier> is installed."""
+where no C++20 host compiler with <ucontext.h> is installed."""
 
 import ctypes
 import shutil
@@ -32,34 +33,31 @@ torch.set_num_threads(2)
 
 SHIMS = Path(__file__).resolve().parent / "host_cuda"
 HARNESS = """#include <cuda_runtime.h>
-#include <barrier>
+#include <fibers.h>
 #include <memory>
-#include <thread>
 #include <vector>
 namespace { alignas(16) uint32_t sm[1 << 14]; }
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
-static std::barrier<>* g_block;
-static std::barrier<>* g_warp[32];
+static Barrier* g_block;
+static Barrier* g_warp[32];
 void __syncthreads() { g_block->arrive_and_wait(); }
 void __syncwarp(unsigned) { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
 """
 RUN_GRID = """
-// Runs kern over the grid: `threads` std::threads (a block's, whole warps) walk the
+// Runs kern over the grid: `threads` fibers (a block's, whole warps) walk the
 // blocks in turn, and between two blocks thread 0 fills the shared memory with a
 // pattern.
 template <class F>
 void run_grid(dim3 grid, F kern, int threads = kThreads) {
-  std::barrier<> block(threads);
+  Barrier block(threads);
   g_block = &block;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<std::unique_ptr<Barrier>> warps;
   for (int w = 0; w < threads / 32; ++w) {
-    warps.emplace_back(new std::barrier<>(32));
+    warps.emplace_back(new Barrier(32));
     g_warp[w] = warps.back().get();
   }
   const unsigned blocks = grid.x * grid.y * grid.z;
-  std::vector<std::thread> pool;
-  for (int t = 0; t < threads; ++t)
-    pool.emplace_back([=, &block] {
+  run_threads(threads, [=, &block](int t) {
       threadIdx.x = t;
       blockDim.x = threads;
       gridDim = grid;
@@ -73,7 +71,6 @@ void run_grid(dim3 grid, F kern, int threads = kThreads) {
         block.arrive_and_wait();
       }
     });
-  for (auto& th : pool) th.join();
 }
 """
 SOURCES = {
@@ -130,11 +127,11 @@ def host_libs(tmp_path_factory):
         pytest.skip("no host C++ compiler")
     d = tmp_path_factory.mktemp("host_rns")
     probe = d / "probe.cpp"
-    probe.write_text("#include <barrier>\n"
-                     "int main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
+    probe.write_text("#include <ucontext.h>\n"
+                     "int main() { ucontext_t c; return getcontext(&c); }\n")
     if subprocess.run([cxx, "-std=c++20", "-pthread", "-o", str(d / "probe"), str(probe)],
                       capture_output=True).returncode:
-        pytest.skip("the host compiler has no C++20 <barrier>")
+        pytest.skip("the host compiler has no C++20 or no <ucontext.h>")
     libs = {}
     for stem, names in (("mac", ("hf_base_conv",)),
                         ("divround", ("hf_div_round", "hf_div_exact_t"))):

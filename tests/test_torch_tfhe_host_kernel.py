@@ -1,11 +1,11 @@
 """The source of the blind-rotation kernels K3/K4 (kernels/csrc/tfhe.cu),
 compiled for the host and run on the CPU: each CUDA thread of a block is a
-std::thread, __syncthreads and __syncwarp are std::barriers, and the
-asynchronous key copy is a memcpy (tests/host_cuda/).  The kernels' index
+fiber on one OS thread, __syncthreads and __syncwarp are barriers between
+them (tests/host_cuda/fibers.h), and the asynchronous key copy is a memcpy.  The kernels' index
 arithmetic, warp transforms, lookups and reductions must give the plain
 chains' bits at lwe_n=16: on the prologue's accumulator, and on uniform
 random residues with the X^a edges 0, 1, N-1, N, 2N-1 among the rotation
-amounts.  No jax.  Skips where no C++20 host compiler with <barrier> is
+amounts.  No jax.  Skips where no C++20 host compiler with <ucontext.h> is
 installed."""
 
 import ctypes
@@ -27,14 +27,13 @@ torch.set_num_threads(2)
 
 SHIMS = Path(__file__).resolve().parent / "host_cuda"
 HARNESS = """#include <cuda_runtime.h>
-#include <barrier>
+#include <fibers.h>
 #include <memory>
-#include <thread>
 #include <vector>
 namespace { alignas(16) uint32_t sm[1 << 16]; }
-thread_local dim3 threadIdx, blockIdx, blockDim;
-static std::barrier<>* g_block;
-static std::barrier<>* g_warp[32];
+thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+static Barrier* g_block;
+static Barrier* g_warp[32];
 void __syncthreads() { g_block->arrive_and_wait(); }
 void __syncwarp(unsigned) { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
 """
@@ -45,22 +44,19 @@ int host_launch(const u32* acc_in, u32* acc_out, const int* a_t, const u32* key,
   static_assert(kSmemWords <= (1 << 16), "shared memory stand-in too small");
   for (int g = 0; g < B; ++g) {
     memset(sm, 0xAB, sizeof(sm));
-    std::barrier<> block(kThreads);
-    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    Barrier block(kThreads);
+    std::vector<std::unique_ptr<Barrier>> warps;
     for (int w = 0; w < kThreads / 32; ++w) {
-      warps.emplace_back(new std::barrier<>(32));
+      warps.emplace_back(new Barrier(32));
       g_warp[w] = warps.back().get();
     }
     g_block = &block;
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kThreads; ++t)
-      threads.emplace_back([=] {
-        threadIdx.x = t;
-        blockIdx.x = g;
-        blockDim.x = kThreads;
-        blind_rotate_kernel<UNROLLED>(acc_in, acc_out, a_t, key, n, T);
-      });
-    for (auto& th : threads) th.join();
+    run_threads(kThreads, [=](int t) {
+      threadIdx.x = t;
+      blockIdx.x = g;
+      blockDim.x = kThreads;
+      blind_rotate_kernel<UNROLLED>(acc_in, acc_out, a_t, key, n, T);
+    });
   }
   return 0;
 }
@@ -85,11 +81,11 @@ def host_lib(tmp_path_factory):
         pytest.skip("no host C++ compiler")
     d = tmp_path_factory.mktemp("host_kernel")
     probe = d / "probe.cpp"
-    probe.write_text("#include <barrier>\n"
-                     "int main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
+    probe.write_text("#include <ucontext.h>\n"
+                     "int main() { ucontext_t c; return getcontext(&c); }\n")
     if subprocess.run([cxx, "-std=c++20", "-pthread", "-o", str(d / "probe"), str(probe)],
                       capture_output=True).returncode:
-        pytest.skip("the host compiler has no C++20 <barrier>")
+        pytest.skip("the host compiler has no C++20 or no <ucontext.h>")
     cpp = d / "tfhe_host.cpp"
     cpp.write_text(host_source())
     so = d / "libtfhe_host.so"

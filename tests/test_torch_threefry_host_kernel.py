@@ -1,12 +1,12 @@
 """The source of the seeded-key draw kernel K7 (kernels/csrc/threefry.cu),
 compiled for the host and run on the CPU as tests/test_torch_rns_host_kernel.py
-runs K2 and K6: each CUDA thread of a block is a std::thread and the launch
-walks its whole grid.  The kernel's counters, Threefry rounds, exact reduction,
+runs K2 and K6: each CUDA thread of a block is a fiber on one OS thread and
+the launch walks its whole grid.  The kernel's counters, Threefry rounds, exact reduction,
 Montgomery step and output layouts must give the plain version's bits
 (threefry.uniform_rns_plain): one row and d rows, in the draw layout and with
 the limb axis moved behind the digit axis, with and without the Montgomery
 form, over seeds whose keys differ in both words.  No jax.  Skips where no
-C++20 host compiler with <barrier> is installed."""
+C++20 host compiler with <ucontext.h> is installed."""
 
 import ctypes
 import shutil
@@ -48,8 +48,8 @@ def host_lib(tmp_path_factory):
     res = subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
                           f"-I{SHIMS}", f"-I{build.CSRC}", "-o", str(so), str(cpp)],
                          capture_output=True, text=True, timeout=600)
-    if res.returncode and "barrier" in res.stderr:
-        pytest.skip("the host compiler has no C++20 <barrier>")
+    if res.returncode and "ucontext" in res.stderr:
+        pytest.skip("the host compiler has no <ucontext.h>")
     assert res.returncode == 0, res.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
     for name in ("threefry_uniform", "threefry_bits"):

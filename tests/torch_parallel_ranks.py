@@ -238,3 +238,99 @@ def ckks_step(rank, world, inp):
             "received_rows": len(got_rows),
             "received_key_rows": sum(bytes(r.numpy()) in key_rows for r in got_rows)}
     return out
+
+
+def boot_sharded(rank, world, inp):
+    """The limb-sharded bootstrap (parallel/boot_sharded.py) for each case of
+    inp["cases"] on a 1 x world ('dp', 'limb') mesh: the case's key set
+    (case["keys"]) placed by shard_pytree_limb_axis, the input ciphertext
+    (case["c"], at its last base_count limbs) by shard_array_limb_axis; the
+    blocks in regular_bootstrap's order (mod_raise, coeff_to_slot,
+    eval_exp_sin twice, slot_to_coeff) and regular_bootstrap itself, or
+    only coeff_to_slot on the raised input and regular_bootstrap where
+    case["blocks"] is False; with case["swk"], also negate, rotate by
+    case["step"] and switch_key on the raised input.  Each rank saves every result's local shard,
+    placements and level, its local key shapes, and what it received,
+    checked here against every row of every key (the rank spies on
+    batch_isend_irecv; full_tensor and redistribute raise), and the errors
+    of a plain-tensor ciphertext and of stripped Galois keys."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from heongpu_tpu_torch.models import ckks, ringkit
+    from heongpu_tpu_torch.parallel import boot_sharded as bs
+    from heongpu_tpu_torch.parallel import ckks_sharded as cks
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.utils import errors
+
+    received = []
+    post = dist.batch_isend_irecv
+
+    def spy(ops):
+        received.extend(op.tensor for op in ops if op.op is dist.irecv)
+        return post(ops)
+
+    def refuse(*a, **k):
+        raise AssertionError("the sharded bootstrap gathered a DTensor")
+
+    dist.batch_isend_irecv = spy
+    DTensor.full_tensor = DTensor.redistribute = refuse
+    out = {}
+    m = meshlib.make_mesh(world, limb_shards=world, device="cpu")
+    for case in inp["cases"]:
+        ctx = ckks.make_context(*case["ctx_args"], device="cpu", **case["ctx_kw"])
+        keys = meshlib.shard_pytree_limb_axis(case["keys"], m)
+        bc = keys.cfg.base_count
+        ct = ckks.Ciphertext(meshlib.shard_array_limb_axis(case["c"], m), 2, ctx.k - bc,
+                             keys.msg_scale)
+        received.clear()
+        res = {"raised": bs.mod_raise(ctx, ct, bc)}
+        res["t0"], res["t1"] = bs.coeff_to_slot(ctx, res["raised"], keys)
+        if case["blocks"]:
+            res["s0"] = bs.eval_exp_sin(ctx, res["t0"], keys)
+            res["s1"] = bs.eval_exp_sin(ctx, res["t1"], keys)
+            res["stoc"] = bs.slot_to_coeff(ctx, res["s0"], res["s1"], keys)
+        res["out"] = bs.regular_bootstrap(ctx, ct, keys)
+        if "swk" in case:
+            # the ops the bootstrap does not reach: negate, a rotation composed
+            # from the power-of-two keys, switch_key
+            res["negate"] = cks.negate(ctx, res["raised"])
+            res["rotate"] = cks.rotate(ctx, res["raised"], keys.gk, case["step"])
+            res["switch_key"] = cks.switch_key(ctx, res["raised"],
+                                               meshlib.shard_pytree_limb_axis(case["swk"], m))
+        halves = [h for kk in list(case["keys"].gk.keys.values()) + [case["keys"].rk]
+                  for h in (kk.k0, kk.k1)]
+        key_rows = {bytes(row.numpy()) for h in halves for row in h.reshape(-1, h.shape[-1])}
+        got_rows = [row for buf in received for row in buf.reshape(-1, buf.shape[-1])]
+        misuse = {}
+        try:
+            bs.regular_bootstrap(ctx, ckks.Ciphertext(case["c"], 2, ctx.k - bc, keys.msg_scale),
+                                 keys)
+        except TypeError as e:
+            misuse["plain_tensor"] = str(e)
+        # a stripped Galois key raises before any exchange
+        gk = ringkit.GaloisKey({e: dataclasses.replace(kk, k1=None, a_seed=7)
+                                for e, kk in keys.gk.keys.items()})
+        try:
+            bs.coeff_to_slot(ctx, res["raised"], dataclasses.replace(keys, gk=gk))
+        except errors.ParameterError as e:
+            misuse["stripped"] = str(e)
+        out[case["name"]] = {
+            "steps": {k: (v.c.to_local(), v.c.placements, v.level, v.scale)
+                      for k, v in res.items()},
+            "key_local": {e: (tuple(k.k0.to_local().shape), k.k0.shape[1])
+                          for e, k in keys.gk.keys.items()},
+            "received_rows": len(got_rows),
+            "received_bytes": sum(buf.numel() * buf.element_size() for buf in received),
+            "received_key_rows": sum(bytes(r.numpy()) in key_rows for r in got_rows),
+            "misuse": misuse}
+    return out
+
+
+def boot_keys_sharded(rank, world, inp):
+    """boot_keys on inp["keys"], then boot_sharded on inp["cases"], in one
+    start of the ranks."""
+    out = boot_keys(rank, world, inp)
+    out["sharded"] = boot_sharded(rank, world, inp)
+    return out
