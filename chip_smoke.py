@@ -69,6 +69,13 @@ coeff_to_slot, eval_exp_sin, slot_to_coeff on limb-sharded ciphertexts, keys
 placed by limb) on a one-rank NCCL group: tests/test_boot_sharded.py's
 configuration at N=256, and phase 13's depth-48 bootstrap at N=2^16.
 
+Then drives the bootstrapping variants on limb-sharded ciphertexts
+(parallel/boot_ext_sharded.py: the Chebyshev EvalMod through a sharded
+baby-step/giant-step, regular v2, slim, bit, the six gates, the sparse
+switch, less-key mode) on a one-rank NCCL group: phase 14's v2 chain at
+N=256 with limb_align=4 keys, and phase 14's regular v2 and NAND runs at
+N=2^16.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -272,6 +279,23 @@ Phases (each raises on failure, so the script exits non-zero):
      memory_allocated against phase 13 (c)'s, device busy, wall and idle
      share against the unsharded bootstrap's; (c) a plain-tensor ciphertext
      raises TypeError, a stripped key ParameterError.
+ 22. the bootstrapping variants on limb-sharded ciphertexts
+     (parallel/boot_ext_sharded.py) on a one-rank NCCL group, keys placed by
+     shard_pytree_limb_axis: (a) N=256, phase 14's v2 configuration with
+     limb_align=4 keys made on the CPU: every run of phase 14 (regular,
+     slim, bit, the six gates, the sparse switch, less-key mode) sharded on
+     the card, its residues, level and scale equal to the CPU plain path's
+     unsharded result, K5 never launched; (b) phase 14 (b)'s regular v2 and
+     NAND runs at N=2^16 (tools/chip_phase22.py adds less-key mode) on their
+     keys made again from phase 14's generator state, one ~9 GB set at a
+     time, launches counted from 0 and held against plain, K5 never
+     launched, K6 once a ÷P site: residues, level and scale equal to phase
+     14 (b)'s outputs, NAND's error within 0.1; the launches against the
+     staged route's rule (each K5 launch of phase 14's run becomes one more
+     K1 forward, K1 inverse and mac_keys and a base_conv a digit), the bytes
+     the placement adds, peak memory_allocated, device busy, wall and idle
+     share against the unsharded run's; (c) a plain-tensor ciphertext raises
+     TypeError, a stripped key set ParameterError.
 On every path the calls that end in one ÷P on the card (div_round_sites:
 each keyswitch, each keyswitch finish, each encryption, each BGV mod
 switch) are counted, and the path fails unless K6 launched once for each.  Phase 7 also times K2
@@ -1728,11 +1752,21 @@ V2_PHASES = (("_apply_stoc", "StoC"), ("_raise_maybe_sparse", "raise"),
              ("_coeff_to_slot", "CtoS"), ("eval_cos_engine", "EvalMod"))
 
 
+def v2_entry(name, mod):
+    """Run `name`'s entry point fn(ctx, *inputs, keys) in `mod`:
+    models.ckks_boot_ext, or parallel.boot_ext_sharded, which mirrors its
+    names."""
+    if name in GATES:
+        return lambda c, a, b, k: mod.gate_bootstrap(c, a, b, name, k)
+    return getattr(mod, {"slim": "slim_bootstrap", "bit": "bit_bootstrap"}.get(
+        name, "regular_bootstrap_v2"))
+
+
 def v2_runs(ctx, sk, pk, gen, n, sk_dense, pk_dense):
     """{run: (keygen kwargs, fn, inputs, the expected slots, the secret it
     decrypts under)} for every phase-14 run; fn(ctx, *inputs, keys) is the
-    entry point, and the inputs are encrypted at the variant's msg_scale and
-    dropped to its entry level."""
+    entry point (v2_entry), and the inputs are encrypted at the variant's
+    msg_scale and dropped to its entry level."""
     from heongpu_tpu_torch.models import ckks
     from heongpu_tpu_torch.models import ckks_boot_ext as ext
     r = np.random.default_rng(n)
@@ -1749,19 +1783,17 @@ def v2_runs(ctx, sk, pk, gen, n, sk_dense, pk_dense):
     ct_z = enc(z, ctx.default_scale, last)
     gates_in = (enc(b1, q0 / 3.0, stoc0), enc(b2, q0 / 3.0, stoc0))
     runs = {
-        "regular": ({}, ext.regular_bootstrap_v2, (ct_z,), z, sk),
-        "slim": (dict(variant="slim", msg_scale=V2_SLIM_SCALE), ext.slim_bootstrap,
-                 (enc(z, V2_SLIM_SCALE, stoc0),), z, sk),
-        "bit": (dict(variant="bit"), ext.bit_bootstrap, (enc(bits, q0 / 2.0, stoc0),), bits, sk),
+        "regular": ({}, (ct_z,), z, sk),
+        "slim": (dict(variant="slim", msg_scale=V2_SLIM_SCALE), (enc(z, V2_SLIM_SCALE, stoc0),),
+                 z, sk),
+        "bit": (dict(variant="bit"), (enc(bits, q0 / 2.0, stoc0),), bits, sk),
     }
     for gate, fn in GATES.items():
-        runs[gate] = (dict(variant="gate"),
-                      lambda c, a, b, k, gate=gate: ext.gate_bootstrap(c, a, b, gate, k),
-                      gates_in, fn(b1, b2).astype(np.float64), sk)
-    runs["sparse"] = (dict(sparse_hw=V2_SPARSE_HW), ext.regular_bootstrap_v2,
-                      (enc(z, ctx.default_scale, last, pk_dense),), z, sk_dense)
-    runs["less_key"] = (dict(less_key_mode=True), ext.regular_bootstrap_v2, (ct_z,), z, sk)
-    return runs
+        runs[gate] = (dict(variant="gate"), gates_in, fn(b1, b2).astype(np.float64), sk)
+    runs["sparse"] = (dict(sparse_hw=V2_SPARSE_HW), (enc(z, ctx.default_scale, last, pk_dense),),
+                      z, sk_dense)
+    runs["less_key"] = (dict(less_key_mode=True), (ct_z,), z, sk)
+    return {name: (kw, v2_entry(name, ext), *rest) for name, (kw, *rest) in runs.items()}
 
 
 def v2_phase_errors(ctx, sk, keys, ct):
@@ -1953,6 +1985,9 @@ def bootstrap_v2_phases(dev, card, errs, n_small=256, n_full=1 << 16):
     cpu_checks = v2_cpu_checks(ctx, n_full)
     total = dict.fromkeys(kernels.launches, 0)
     keys, keys_kw = None, None
+    # what phase 22 holds the sharded runs against: each run's generator state
+    # before its key set was made, its inputs and output
+    refs = {"ctx": ctx, "sk": sk, "runs": {}}
     for name, (kw, fn, inputs, want, skey) in runs.items():
         call = lambda k, fn=fn, inputs=inputs: fn(ctx, *inputs, k)
         t0 = time.perf_counter()
@@ -1962,6 +1997,7 @@ def bootstrap_v2_phases(dev, card, errs, n_small=256, n_full=1 << 16):
             torch.cuda.empty_cache()
             torch.cuda.synchronize()
             mem0 = torch.cuda.memory_allocated(dev)
+            gen_state = gen.get_state()
             t1 = time.perf_counter()
             keys = ext.generate_bootstrap_keys_v2(ctx, gen, skd if name == "sparse" else sk,
                                                   cfg, **kw)
@@ -1983,6 +2019,9 @@ def bootstrap_v2_phases(dev, card, errs, n_small=256, n_full=1 << 16):
         require_launched(f"bootstrap {name}", launches,
                          ("ntt_fwd", "ntt_inv", "keyswitch2_fused", "mac_keys", "base_conv"))
         total = {k: total[k] + launches[k] for k in total}
+        if name in V2_SHARDED_KEPT:
+            refs["runs"][name] = {"kw": kw, "gen_state": gen_state, "inputs": inputs,
+                                  "want": want, "out": out}
         err, p99 = boot_error(ctx, skey, out, want)
         tol = v2_tol(name, TOL_V2_FULL)
         r.update(max_abs_err=err, p99_abs_err=p99, launches=launches, output_level=out.level)
@@ -2019,6 +2058,7 @@ def bootstrap_v2_phases(dev, card, errs, n_small=256, n_full=1 << 16):
           f"{std['key_bytes']['galois'] / 1e9:.3f} GB "
           f"({lkm['key_bytes']['galois'] / std['key_bytes']['galois'] - 1:+.1%}); "
           f"{lkm['ms']:.3f} ms against {std['ms']:.3f} ms ({lkm['ms'] / std['ms'] - 1:+.1%}) [{card}]")
+    rec["sharded_refs"] = refs   # phase 22 holds the sharded runs against them
     return total, rec
 
 
@@ -3238,6 +3278,20 @@ def split_transform_ms(tb, x, y, card, ds=PAR_DS, label="") -> dict:
     return out
 
 
+def one_rank_group():
+    """A one-rank NCCL process group on a free port of 127.0.0.1 and its 1 x 1
+    ('dp', 'limb') mesh."""
+    import socket
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.parallel import multihost
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    multihost.init_process(f"127.0.0.1:{port}", 0, 1)
+    return meshlib.make_mesh(1)
+
+
 def parallel_phases(dev, card, errs, gen, ctx, rk):
     """Phase 19: the parallel layer at the main path's width (N=2^16, twelve
     29-bit Q primes, alpha 4, four special primes: ctx and its relin key rk).
@@ -3253,7 +3307,6 @@ def parallel_phases(dev, card, errs, gen, ctx, rk):
     phase 11's N=256 configuration: every key's limb extent divides 4, and the
     card's bootstrap equals the CPU's.  Returns (the launches of (b), record,
     the split passes' timings)."""
-    import socket
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -3262,8 +3315,6 @@ def parallel_phases(dev, card, errs, gen, ctx, rk):
     from heongpu_tpu_torch.ops import keyswitch2 as ks2m
     from heongpu_tpu_torch.ops import ntt as nttm
     from heongpu_tpu_torch.parallel import keyswitch_sharded as kss
-    from heongpu_tpu_torch.parallel import mesh as meshlib
-    from heongpu_tpu_torch.parallel import multihost
     from heongpu_tpu_torch.parallel import ntt_sharded as ns
     rec = {}
 
@@ -3293,13 +3344,8 @@ def parallel_phases(dev, card, errs, gen, ctx, rk):
 
     # -- 19. (b) a one-rank NCCL group -----------------------------------------------------
     t0 = time.perf_counter()
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    multihost.init_process(f"127.0.0.1:{port}", 0, 1)
+    mesh = one_rank_group()
     try:
-        mesh = meshlib.make_mesh(1)
         fwd, inv = ns.make_sharded_ntt(
             DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("coef",)), tq)
         ks2 = ctx.ks2[0]
@@ -3491,14 +3537,12 @@ def ckks_sharded_phase(dev, card, errs, gen, ctx, rk, ct1, ct2):
     result equal to the unsharded entry points' on each pair.  Then the device
     busy ms of one mult+relin+rescale, sharded on one rank against unsharded.
     Returns (launches, record)."""
-    import socket
     import torch
     import torch.distributed as dist
     from heongpu_tpu_torch import kernels
     from heongpu_tpu_torch.models import ckks
     from heongpu_tpu_torch.parallel import ckks_sharded as cks
     from heongpu_tpu_torch.parallel import mesh as meshlib
-    from heongpu_tpu_torch.parallel import multihost
     from heongpu_tpu_torch.utils import rng
     t0 = time.perf_counter()
     m1ctx = ckks.make_context(N, Q_BITS, device=dev)
@@ -3509,13 +3553,8 @@ def ckks_sharded_phase(dev, card, errs, gen, ctx, rk, ct1, ct2):
              "Method I": (m1ctx, rk1,
                           *(rand_residues(q1, (len(q1), N), gen, dev).view(
                               SHARDED_BATCH, 2, m1ctx.k, N) for _ in range(2)))}
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    multihost.init_process(f"127.0.0.1:{port}", 0, 1)
+    mesh = one_rank_group()
     try:
-        mesh = meshlib.make_mesh(1)
         place = meshlib.ct_sharding(mesh, batched=True).place
         placed = {k: (cx, meshlib.shard_pytree_limb_axis(key, mesh), place(a), place(b))
                   for k, (cx, key, a, b) in pairs.items()}
@@ -3594,23 +3633,16 @@ def boot_sharded_phase(dev, card, errs, boot_c, boot_rec):
     a plain-tensor ciphertext raises TypeError, a stripped key
     ParameterError.  Returns (launches of (b), record)."""
     import dataclasses
-    import socket
     import torch
     import torch.distributed as dist
     from heongpu_tpu_torch import kernels
     from heongpu_tpu_torch.models import ckks, ckks_boot, ringkit
     from heongpu_tpu_torch.parallel import boot_sharded as bs
     from heongpu_tpu_torch.parallel import mesh as meshlib
-    from heongpu_tpu_torch.parallel import multihost
     from heongpu_tpu_torch.utils import errors
     rec = {}
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    multihost.init_process(f"127.0.0.1:{port}", 0, 1)
+    mesh = one_rank_group()
     try:
-        mesh = meshlib.make_mesh(1)
         place = lambda ct: ckks.Ciphertext(meshlib.shard_array_limb_axis(ct.c, mesh), ct.size,
                                            ct.level, ct.scale)
         # -- 21. (a) N=256, card against CPU ---------------------------------------------
@@ -3719,6 +3751,193 @@ def boot_sharded_phase(dev, card, errs, boot_c, boot_rec):
     del ctx, sk, keys, ct, skeys, sct, out, local
     torch.cuda.empty_cache()
     return launches, rec
+
+
+# The bootstrapping variants on limb-sharded ciphertexts (phase 22): (a) phase 14's
+# v2 configuration at N=256 with keys made with limb_align=4, every run of v2_runs;
+# (b) runs of phase 14 (b) at N=2^16, their keys made again from phase 14's
+# generator state: V2_SHARDED_FULL in this script (less-key mode would take its time
+# past its budget), and every run phase 14 keeps (V2_SHARDED_KEPT) in
+# tools/chip_phase22.py.
+V2_SHARDED_KEPT = ("regular", "NAND", "less_key")
+V2_SHARDED_FULL = ("regular", "NAND")
+
+
+def boot_v2_sharded_phase(dev, card, errs, refs, v2_rec, full=V2_SHARDED_FULL):
+    """Phase 22: the bootstrapping variants on limb-sharded ciphertexts
+    (parallel/boot_ext_sharded.py) on a one-rank NCCL group, keys placed by
+    shard_pytree_limb_axis and inputs by shard_array_limb_axis.  (a) N=256:
+    every run of v2_runs on limb_align=4 keys made on the CPU, the card's
+    sharded residues, level and scale equal to the CPU plain path's
+    unsharded result, K5 never launched.  (b) N: each run named in `full`
+    on phase 14 (b)'s keys made again from its generator state (refs), one
+    ~9 GB set at a time, launches counted from 0 and held against plain, K5
+    never launched, K6 once a ÷P site; its residues, level and scale equal
+    to phase 14 (b)'s output, the gates' error within TOL_V2_FULL; the
+    launches against the staged route's rule (for each K5 launch of phase 14's run, one
+    more K1 forward, K1 inverse and mac_keys, and base_conv a digit), the
+    bytes the placement adds, peak memory_allocated, device busy, wall and
+    idle share of one sharded run against one unsharded.  (c) Misuse: a
+    plain-tensor ciphertext raises TypeError, a stripped key set
+    ParameterError.  Returns (the launches of (b), summed; record)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from heongpu_tpu_torch import kernels
+    from heongpu_tpu_torch.models import ckks, ringkit
+    from heongpu_tpu_torch.models import ckks_boot_ext as ext
+    from heongpu_tpu_torch.parallel import boot_ext_sharded as bes
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.utils import errors, rng
+    cfg = ext.BootConfigV2(**V2_CFG)
+    rec = {}
+    mesh = one_rank_group()
+    try:
+        place = lambda ct: ckks.Ciphertext(meshlib.shard_array_limb_axis(ct.c, mesh), ct.size,
+                                           ct.level, ct.scale)
+        # -- 22. (a) N=256, card against CPU ---------------------------------------------
+        t0 = time.perf_counter()
+        cctx = ckks.make_context(256, V2_Q_BITS, device="cpu", **V2_CTX)
+        dctx = ckks.make_context(256, V2_Q_BITS, device=dev, **V2_CTX)
+        g = rng.new_generator(31, "cpu")
+        sk = ckks.keygen_secret(cctx, g, hamming_weight=V2_HW)
+        pk = ckks.keygen_public(cctx, g, sk)
+        skd = ckks.keygen_secret(cctx, g)
+        runs = v2_runs(cctx, sk, pk, g, 256, skd, ckks.keygen_public(cctx, g, skd))
+        to_dev = lambda c: place(ckks.Ciphertext(c.c.to(dev), c.size, c.level, c.scale))
+        what = "boot_v2_sharded (a) N=256 one-rank NCCL group"
+        keys_by, cpu_outs, same_a = {}, {}, {}
+        for name, (kw, fn, inputs, _, _) in runs.items():
+            if repr(kw) not in keys_by:
+                keys_by[repr(kw)] = ext.generate_bootstrap_keys_v2(
+                    cctx, g, skd if name == "sparse" else sk, cfg, limb_align=PAR_ALIGN, **kw)
+            cpu_outs[name] = fn(cctx, *inputs, keys_by[repr(kw)])
+        placed = {k: meshlib.shard_pytree_limb_axis(boot_keys_to(v, dev), mesh)
+                  for k, v in keys_by.items()}
+        kernels.reset_launches()
+        with held_against_plain(what, errs), div_round_sites(what):
+            for name, (kw, _, inputs, _, _) in runs.items():
+                out = v2_entry(name, bes)(dctx, *map(to_dev, inputs), placed[repr(kw)])
+                torch.cuda.synchronize()
+                want = cpu_outs[name]
+                same_a[name] = (torch.equal(out.c.to_local().cpu(), want.c)
+                                and (out.level, out.scale) == (want.level, want.scale))
+            launches_a = dict(kernels.launches)
+        print(f"{what}: {V2_CFG}, limb_align={PAR_ALIGN}: sharded residues, level and scale "
+              f"identical to the CPU plain path's unsharded results: {same_a}; launches "
+              f"{launches_a}; {time.perf_counter() - t0:.1f} s")
+        if not all(same_a.values()) or launches_a["keyswitch2_fused"]:
+            raise AssertionError("boot_v2_sharded (a): card and CPU differ, or K5 launched")
+        rec["n256"] = {"identical_to_cpu": same_a, "launches": launches_a}
+
+        # -- 22. (c) misuse --------------------------------------------------------------
+        dkeys = placed[repr({})]
+        dct = to_dev(runs["regular"][2][0])
+        misuse = {}
+        try:
+            bes.regular_bootstrap_v2(dctx, ckks.Ciphertext(dct.c.to_local(), 2, dct.level,
+                                                           dct.scale), dkeys)
+        except TypeError as e:
+            misuse["plain_tensor"] = type(e).__name__
+        strip = lambda k: dataclasses.replace(k, k1=None, a_seed=1)
+        stripped = dataclasses.replace(
+            dkeys, gk=ringkit.GaloisKey({e: strip(k) for e, k in dkeys.gk.keys.items()}),
+            rk=strip(dkeys.rk))
+        try:
+            bes.regular_bootstrap_v2(dctx, dct, stripped)
+        except errors.ParameterError as e:
+            misuse["stripped_key_set"] = type(e).__name__
+        print(f"boot_v2_sharded (c) misuse: {misuse}")
+        if set(misuse) != {"plain_tensor", "stripped_key_set"}:
+            raise AssertionError(f"boot_v2_sharded (c): a misuse did not raise: {misuse}")
+        rec["misuse"] = misuse
+        del cctx, dctx, runs, keys_by, cpu_outs, placed, dkeys, dct, stripped
+
+        # -- 22. (b) phase 14 (b)'s runs at N, their keys made again ----------------------
+        ctx, sk = refs["ctx"], refs["sk"]
+        n = ctx.n
+        total = dict.fromkeys(kernels.launches, 0)
+        for name in full:
+            ref = refs["runs"][name]
+            t0 = time.perf_counter()
+            torch.cuda.empty_cache()
+            gen = rng.new_generator(41, dev)
+            gen.set_state(ref["gen_state"])
+            keys = ext.generate_bootstrap_keys_v2(ctx, gen, sk, cfg, **ref["kw"])
+            torch.cuda.synchronize()
+            remade_s = time.perf_counter() - t0
+            mem0 = torch.cuda.memory_allocated(dev)
+            skeys, sin = meshlib.shard_pytree_limb_axis(keys, mesh), [place(c) for c in
+                                                                       ref["inputs"]]
+            torch.cuda.synchronize()
+            added = torch.cuda.memory_allocated(dev) - mem0
+            sharded_fn = lambda f=v2_entry(name, bes): f(ctx, *sin, skeys)
+            unsharded_fn = lambda f=v2_entry(name, ext): f(ctx, *ref["inputs"], keys)
+            what = f"boot_v2_sharded (b) {name} N={n} one-rank NCCL group"
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            with held_against_plain(what, errs), div_round_sites(what) as sites:
+                out = sharded_fn()
+                torch.cuda.synchronize()
+                launches = dict(kernels.launches)
+            held_s = time.perf_counter() - t1
+            total = {k: total[k] + launches[k] for k in total}
+            want = ref["out"]
+            local = out.c.to_local()
+            same = (torch.equal(local, want.c)
+                    and (out.level, out.scale) == (want.level, want.scale))
+            err, p99 = boot_error(ctx, sk, ckks.Ciphertext(local, out.size, out.level,
+                                                           out.scale), ref["want"])
+            tol = v2_tol(name, TOL_V2_FULL)
+            # the staged route's rule: each K5 launch of the unsharded run becomes one more
+            # K1 forward, K1 inverse and mac_keys (and a base_conv a digit)
+            u = v2_rec[f"n{n}"][name]["launches"]
+            k5 = u["keyswitch2_fused"]
+            rule = {"ntt_fwd": u["ntt_fwd"] + k5, "ntt_inv": u["ntt_inv"] + k5,
+                    "mac_keys": u["mac_keys"] + k5, "div_round": u["div_round"],
+                    "keyswitch2_fused": 0}
+            held_rule = all(launches[k] == v for k, v in rule.items())
+            print(f"{what}: residues, level and scale identical to phase 14 (b)'s unsharded "
+                  f"output: {same}; max error {err:.3e} ("
+                  + (f"limit {tol}" if tol else "no limit at this N: phase 14") + f"), p99 "
+                  f"{p99:.3e}; launches {launches}; phase 14's unsharded {u}; the staged route's rule "
+                  f"{rule}: held {held_rule}, base_conv {launches['base_conv']} against "
+                  f"{u['base_conv']} + one a digit; ÷P sites {dict(sites)}; held against plain "
+                  f"{held_s:.1f} s; keys made again in {remade_s:.1f} s; placing them added "
+                  f"{added} bytes [{card}]")
+            if not same or (tol and not err < tol):
+                raise AssertionError(f"boot_v2_sharded (b) {name}: residues differ from phase "
+                                     f"14 (b)'s, or the error {err} is above {tol}")
+            require_launched(what, launches, ("ntt_fwd", "ntt_inv", "mac_keys", "base_conv",
+                                              "div_round"))
+            if launches["keyswitch2_fused"]:
+                raise AssertionError(f"boot_v2_sharded (b) {name}: K5 launched: {launches}")
+            timed = {}
+            for label, fn in (("sharded", sharded_fn), ("unsharded", unsharded_fn)):
+                torch.cuda.reset_peak_memory_stats(dev)
+                busy, wall, idle, per_kernel = device_idle_share(fn, 1)
+                timed[label] = {"busy_ms": busy, "wall_ms": wall, "idle_share": idle,
+                                "kernel_ms": own_kernels(per_kernel),
+                                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+            sh, un = timed["sharded"], timed["unsharded"]
+            print(f"time boot_v2_sharded (b) {name}: sharded on one rank busy "
+                  f"{fmt_ms(sh['busy_ms'])} ms, wall {sh['wall_ms']:.3f} ms, idle share "
+                  f"{fmt_ms(sh['idle_share'])}; unsharded busy {fmt_ms(un['busy_ms'])} ms, wall "
+                  f"{un['wall_ms']:.3f} ms, idle share {fmt_ms(un['idle_share'])}; peak "
+                  f"memory_allocated sharded {sh['peak_bytes'] / 1e9:.3f} GB, unsharded "
+                  f"{un['peak_bytes'] / 1e9:.3f} GB; hand-written kernels, device ms sharded "
+                  f"{sh['kernel_ms']}, unsharded {un['kernel_ms']} [{card}]")
+            rec[f"n{n}_{name}"] = {
+                "identical_to_phase14": same, "max_abs_err": err, "p99_abs_err": p99,
+                "launches": launches, "phase14_launches": u, "rule": rule,
+                "rule_held": held_rule, "sites": dict(sites), "placed_bytes": added,
+                "remade_s": remade_s, "held_s": held_s, "timed": timed,
+                "seconds": time.perf_counter() - t0}
+            del keys, skeys, sin, out, local, sharded_fn, unsharded_fn
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return total, rec
 
 
 def main() -> int:
@@ -4156,12 +4375,17 @@ def run(dev) -> int:
     t21 = time.perf_counter()
     bsh_launches, bsh_rec = boot_sharded_phase(dev, card, errs, boot_rec.pop("out_c"), boot_rec)
     print(f"phase 21: {time.perf_counter() - t21:.1f} s")
-    # each kernel's launches on the thirteen paths, each run counted from 0 just before it
+    # -- 22. the bootstrapping variants on limb-sharded ciphertexts ------------------------
+    t22 = time.perf_counter()
+    bv2_launches, bv2_rec = boot_v2_sharded_phase(dev, card, errs, v2_rec.pop("sharded_refs"),
+                                                  v2_rec)
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s")
+    # each kernel's launches on the fourteen paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
                 + v2_launches[k] + bfv_launches[k] + m1_launches[k] + bgv_launches[k]
                 + mpc_launches[k] + par_launches[k] + sh_launches[k] + bsh_launches[k]
-                for k in launches}
+                + bv2_launches[k] for k in launches}
     # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's, its
     # raw-words mode at MPC BFV's widest draw (a relin round's gaussian, (29, 2^15))
     k7_kern = boot_rec["compressed"]["kernels"]
@@ -4254,6 +4478,7 @@ def run(dev) -> int:
               "utilities": util_rec, "native": native_rec,
               "ckks_sharded_launches": sh_launches, "ckks_sharded": sh_rec,
               "boot_sharded_launches": bsh_launches, "boot_sharded": bsh_rec,
+              "boot_v2_sharded_launches": bv2_launches, "boot_v2_sharded": bv2_rec,
               "div_round_runs": DIV_ROUND_RUNS}
     busy = {"CKKS mult+relin (Method II)": ckks_prof,
             "CKKS mult+relin, Method I": m1_rec["profile"],

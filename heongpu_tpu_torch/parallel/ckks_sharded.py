@@ -1,7 +1,8 @@
 """The CKKS ops on limb-sharded ciphertexts over a ('dp', 'limb') mesh, the
 keys sharded by QP limb: the step (multiply, relinearize, rescale), the
 rotations and key switches, the limb-local ops, the layout changes and the
-hoisted rotations that bootstrapping runs (parallel/boot_sharded.py).
+hoisted rotations that bootstrapping runs (parallel/boot_sharded.py,
+parallel/boot_ext_sharded.py).
 
 The JAX package runs its ordinary entry points on such inputs under `jit`
 and lets GSPMD insert the collectives (tests/test_parallel.py,
@@ -18,8 +19,9 @@ the exchanges written out:
     output out by that rule.  Keys (d, k_gen + p, N) are placed by
     mesh.shard_array_limb_axis / shard_pytree_limb_axis: a rank holds a
     block of QP rows, or all rows;
-  * multiply, add, sub, negate, add_plain, multiply_plain,
-    multiply_by_monomial and p_scale_to_qtilde are limb-local; the Galois
+  * multiply, add, sub, negate, add_plain, sub_plain, multiply_plain,
+    mul_plain_core, multiply_by_monomial, p_scale_to_qtilde, encode_const
+    (at any level) and zeros are limb-local; the Galois
     gather permutes along N, so it is limb-local too.  A plaintext, a
     monomial table or a diagonal is not a key: a rank takes its rows of one,
     and where they lie on other ranks (a constant placed by its own extent)
@@ -332,12 +334,16 @@ def negate(ctx, a: Ciphertext) -> Ciphertext:
     return Ciphertext(lay.wrap(out, lay.sharded), a.size, a.level, a.scale)
 
 
-def encode_const(ctx, value, scale: float, like: Ciphertext) -> Plaintext:
-    """ckks.encode_const at like's level, placed as like's c: each rank
-    encodes its own rows only (the exact a + b·X^(n/2), then K1 over its
-    limbs)."""
+def encode_const(ctx, value, scale: float, like: Ciphertext, level: int = None) -> Plaintext:
+    """ckks.encode_const at `level` (like's by default) on like's mesh: at
+    like's level placed as like's c, at another by shard_array_limb_axis's
+    rule.  Each rank encodes its own rows only (the exact a + b·X^(n/2),
+    then K1 over its limbs)."""
     lay = _layout(like.c)
-    lo, hi = lay.block(ctx.active(like.level), lay.rank)
+    level = like.level if level is None else level
+    ka = ctx.active(level)
+    sharded = lay.sharded if level == like.level else ka % lay.k == 0
+    lo, hi = lay.block(ka, lay.rank, sharded)
     v, s = complex(value), Fraction(scale)
     a, b = int(round(Fraction(v.real) * s)), int(round(Fraction(v.imag) * s))
     primes = [int(q) for q in ctx.q_primes[lo:hi]]
@@ -347,10 +353,22 @@ def encode_const(ctx, value, scale: float, like: Ciphertext) -> Plaintext:
     if b:
         m[:, ctx.n // 2] = mm.u32_to_i32([b % q for q in primes]).to(dev)
     mesh = like.c.device_mesh
-    place = [Shard(0) if name == "limb" and lay.sharded else Replicate()
+    place = [Shard(0) if name == "limb" and sharded else Replicate()
              for name in mesh.mesh_dim_names]
     m = DTensor.from_local(nttm.ntt_fwd(m, _limbs(ctx, lo, hi)), mesh, place, run_check=False)
-    return Plaintext(m, like.level, float(scale))
+    return Plaintext(m, level, float(scale))
+
+
+def zeros(ctx, like: Ciphertext, level: int, scale: float) -> Ciphertext:
+    """The zero ciphertext of size 2 at `level` on like's mesh (like's batch
+    dims), laid out by shard_array_limb_axis's rule."""
+    lay = _layout(like.c)
+    ka = ctx.active(level)
+    sharded = ka % lay.k == 0
+    lo, hi = lay.block(ka, lay.rank, sharded)
+    local = like.c.to_local()
+    z = local.new_zeros(local.shape[:-3] + (2, hi - lo, ctx.n))
+    return Ciphertext(lay.wrap(z, sharded), 2, level, scale)
 
 
 def _pt_rows(ctx, pt: Plaintext, lay: _Layout):
@@ -360,21 +378,36 @@ def _pt_rows(ctx, pt: Plaintext, lay: _Layout):
     return _const_rows(pt.m, lay, [lay.q_rows(ka, r) for r in range(lay.k)])
 
 
-def add_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+def _c0_plain(ctx, a: Ciphertext, pt: Plaintext, op) -> Ciphertext:
+    """c0 op pt on each rank's rows, the other polys as they are."""
     errors.check_level(a.level, pt.level, "ciphertext/plaintext")
     errors.check_scale(a.scale, pt.scale)
     lay = _layout(a.c)
     c = a.c.to_local()
-    c0 = mm.add_mod(c.select(-3, 0), _pt_rows(ctx, pt, lay), _q_mod(ctx, a.level, lay))
+    c0 = op(c.select(-3, 0), _pt_rows(ctx, pt, lay), _q_mod(ctx, a.level, lay))
     out = torch.cat([c0.unsqueeze(-3), c.narrow(-3, 1, a.size - 1)], dim=-3)
     return Ciphertext(lay.wrap(out, lay.sharded), a.size, a.level, a.scale)
 
 
-def multiply_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+def add_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    return _c0_plain(ctx, a, pt, mm.add_mod)
+
+
+def sub_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    return _c0_plain(ctx, a, pt, mm.sub_mod)
+
+
+def mul_plain_core(ctx, a: Ciphertext, pt: Plaintext, scale: float) -> Ciphertext:
+    """ckks._mul_plain_core on each rank's rows: a·pt at a's level, the
+    result given `scale` (poly_eval's leaf products set it exactly)."""
     errors.check_level(a.level, pt.level, "ciphertext/plaintext")
     lay = _layout(a.c)
     out = mm.mul_mod(a.c.to_local(), _pt_rows(ctx, pt, lay), _q_mod(ctx, a.level, lay))
-    return Ciphertext(lay.wrap(out, lay.sharded), a.size, a.level, a.scale * pt.scale)
+    return Ciphertext(lay.wrap(out, lay.sharded), a.size, a.level, scale)
+
+
+def multiply_plain(ctx, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    return mul_plain_core(ctx, a, pt, a.scale * pt.scale)
 
 
 def multiply_by_monomial(ctx, a: Ciphertext, tables) -> Ciphertext:

@@ -166,7 +166,8 @@ def test_port_rejects_misuse(chain):
 def test_port_imports_no_jax():
     """Every module of heongpu_tpu_torch, imported in a fresh interpreter,
     loads neither jax nor the JAX package; the walk reaches the
-    bootstrapping modules, BFV, the logic gates and the sharded bootstrap."""
+    bootstrapping modules, BFV, the logic gates, the sharded bootstrap and
+    the sharded bootstrapping variants."""
     code = ("import importlib, pkgutil, sys, heongpu_tpu_torch as pkg; "
             "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'heongpu_tpu_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
@@ -174,7 +175,8 @@ def test_port_imports_no_jax():
             "or m.startswith(('jax.', 'heongpu_tpu.'))]; "
             "need = {'heongpu_tpu_torch.' + m for m in "
             "('models.ckks_boot', 'models.ckks_boot_ext', 'models.poly_eval', 'models.bfv', "
-            "'models.logic', 'parallel.ckks_sharded', 'parallel.boot_sharded')}; "
+            "'models.logic', 'parallel.ckks_sharded', 'parallel.boot_sharded', "
+            "'parallel.boot_ext_sharded')}; "
             "print(len(mods), bad, need - set(mods)); "
             "sys.exit(1 if bad or len(mods) < 20 or need - set(mods) else 0)")
     root = Path(__file__).resolve().parents[1]

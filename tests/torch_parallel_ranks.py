@@ -334,3 +334,96 @@ def boot_keys_sharded(rank, world, inp):
     out = boot_keys(rank, world, inp)
     out["sharded"] = boot_sharded(rank, world, inp)
     return out
+
+
+def boot_v2_sharded(rank, world, inp):
+    """The bootstrapping variants on a limb-sharded ciphertext
+    (parallel/boot_ext_sharded.py) on a 1 x world ('dp', 'limb') mesh.  For
+    each case of inp["cases"] its key set (case["keys"]) is placed by
+    shard_pytree_limb_axis and each of its calls (label, kind, inputs, args)
+    runs V2_CALLS[kind] on the inputs ((c, level, scale) each, c placed by
+    shard_array_limb_axis).  Each rank saves every result's local shard,
+    placements, level and scale, and what it received, checked here against
+    every row of every key of the case (the rank spies on batch_isend_irecv;
+    full_tensor and redistribute raise); with case["misuse"], the errors of
+    a plain-tensor ciphertext and of a stripped key set on the input of the
+    call labelled "regular"."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from heongpu_tpu_torch.models import ckks, ringkit
+    from heongpu_tpu_torch.parallel import boot_ext_sharded as bes
+    from heongpu_tpu_torch.parallel import boot_sharded as bs
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.utils import errors
+
+    received = []
+    post = dist.batch_isend_irecv
+
+    def spy(ops):
+        received.extend(op.tensor for op in ops if op.op is dist.irecv)
+        return post(ops)
+
+    def refuse(*a, **k):
+        raise AssertionError("the sharded variants gathered a DTensor")
+
+    dist.batch_isend_irecv = spy
+    DTensor.full_tensor = DTensor.redistribute = refuse
+    ctx = ckks.make_context(*inp["ctx_args"], device="cpu", **inp["ctx_kw"])
+    m = meshlib.make_mesh(world, limb_shards=world, device="cpu")
+    place = lambda c, level, scale: ckks.Ciphertext(meshlib.shard_array_limb_axis(c, m), 2,
+                                                    level, scale)
+    out = {}
+    for case in inp["cases"]:
+        keys = meshlib.shard_pytree_limb_axis(case["keys"], m)
+        received.clear()
+        res = {}
+        for label, kind, inputs, args in case["calls"]:
+            res[label] = V2_CALLS[kind](bes, bs, ctx, [place(*x) for x in inputs], keys, *args)
+        halves = [h for kk in [*case["keys"].gk.keys.values(), case["keys"].rk,
+                               case["keys"].swk_to_sparse, case["keys"].swk_to_dense]
+                  if kk is not None for h in (kk.k0, kk.k1)]
+        key_rows = {bytes(row.numpy()) for h in halves for row in h.reshape(-1, h.shape[-1])}
+        got_rows = [row for buf in received for row in buf.reshape(-1, buf.shape[-1])]
+        misuse = {}
+        if case.get("misuse"):
+            c, level, scale = next(x for lbl, _, x, _ in case["calls"] if lbl == "regular")[0]
+            try:
+                bes.regular_bootstrap_v2(ctx, ckks.Ciphertext(c, 2, level, scale), keys)
+            except TypeError as e:
+                misuse["plain_tensor"] = str(e)
+            strip = lambda kk: dataclasses.replace(kk, k1=None, a_seed=7)
+            stripped = dataclasses.replace(
+                keys, gk=ringkit.GaloisKey({e: strip(kk) for e, kk in keys.gk.keys.items()}),
+                rk=strip(keys.rk))
+            try:
+                bes.regular_bootstrap_v2(ctx, place(c, level, scale), stripped)
+            except errors.ParameterError as e:
+                misuse["stripped"] = str(e)
+        out[case["name"]] = {
+            "steps": {k: (v.c.to_local(), v.c.placements, v.level, v.scale)
+                      for k, v in res.items()},
+            "key_local": {e: (tuple(k.k0.to_local().shape), k.k0.shape[1])
+                          for e, k in keys.gk.keys.items()},
+            "received_rows": len(got_rows),
+            "received_key_rows": sum(bytes(r.numpy()) in key_rows for r in got_rows),
+            "misuse": misuse}
+    return out
+
+
+# kind -> fn(module of the variants, module of the pieces, ctx, inputs, keys, *args): the
+# calls of boot_v2_sharded; the tests give the unsharded modules for the same calls
+V2_CALLS = {
+    "poly": lambda ext, boot, ctx, x, keys: ext.eval_poly_bsgs(ctx, x[0], keys.cos_coeffs,
+                                                               keys.rk),
+    "cos": lambda ext, boot, ctx, x, keys, phase: ext.eval_cos_engine(ctx, x[0], keys, phase),
+    "regular": lambda ext, boot, ctx, x, keys: ext.regular_bootstrap_v2(ctx, x[0], keys),
+    "slim": lambda ext, boot, ctx, x, keys: ext.slim_bootstrap(ctx, x[0], keys),
+    "bit": lambda ext, boot, ctx, x, keys: ext.bit_bootstrap(ctx, x[0], keys),
+    "gate": lambda ext, boot, ctx, x, keys, gate: ext.gate_bootstrap(ctx, x[0], x[1], gate,
+                                                                     keys),
+    "raise": lambda ext, boot, ctx, x, keys: ext._raise_maybe_sparse(ctx, x[0], keys),
+    "piece": lambda ext, boot, ctx, x, keys, i: boot.matvec_piece(ctx, x[0],
+                                                                  keys.ctos_pieces[i], keys.gk),
+}

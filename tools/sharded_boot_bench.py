@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""The limb-sharded bootstrap (heongpu_tpu_torch/parallel/boot_sharded.py)
-across the cards of one host, against the unsharded bootstrap on one card.
+"""The limb-sharded bootstrap (heongpu_tpu_torch/parallel/boot_sharded.py) and
+its variants (parallel/boot_ext_sharded.py) across the cards of one host,
+against the unsharded bootstrap on one card.
 
-One process a card (NCCL, a ('dp', 'limb') mesh of dp = 1): chip_smoke.py's
-depth-48 configuration at N=2^16 (BOOT_Q_BITS, BOOT_CTX, BOOT_CFG, BOOT_HW) with
-keys made with limb_align = the number of ranks, so that every key splits,
-from one seed on every rank (chip_smoke.boot_setup).  Each rank first runs the
-unsharded regular_bootstrap on its card with the whole key set (wall ms, median
-of `rounds`, and its peak memory_allocated), then places the set by
-shard_pytree_limb_axis, frees the whole set and runs the sharded bootstrap on
-the placed input: its shard held against the same rows of the unsharded
-output, its error, the key bytes it holds against the set's, its resident and
-peak memory_allocated, the bytes it receives in one bootstrap, its wall ms
-(between a barrier and a synchronize, median of `rounds`) and a torch.profiler
-trace of one bootstrap (device busy, the NCCL SendRecv kernels' time, the
-leading kernels and host ops).  Rank 0 prints one JSON line with every rank's
-numbers, the card's name and power limit.
+One process a card (NCCL, a ('dp', 'limb') mesh of dp = 1), keys made with
+limb_align = the number of ranks, from one seed on every rank.  --variant
+regular (the default): chip_smoke.py's depth-48 configuration at N=2^16
+(BOOT_Q_BITS, BOOT_CTX, BOOT_CFG, BOOT_HW; chip_smoke.boot_setup) and
+regular_bootstrap; regular_v2 and nand: phase 14's v2 chain at N=2^16
+(V2_Q_BITS, V2_CTX, V2_CFG, V2_HW; chip_smoke.v2_runs' inputs) and
+regular_bootstrap_v2 or the NAND gate_bootstrap.  Each rank first runs the
+unsharded entry point on its card with the whole key set (wall ms, median of
+`rounds`, and its peak memory_allocated), then places the set by
+shard_pytree_limb_axis, frees the whole set and runs the sharded entry point
+on the placed inputs: its shard held against the same rows of the unsharded
+output, the unsharded output's error, the key bytes it holds against the
+set's, its resident and peak memory_allocated, the bytes it receives in one
+run, its wall ms (between a barrier and a synchronize, median of `rounds`)
+and a torch.profiler trace of one run (device busy, the NCCL SendRecv
+kernels' time, the leading kernels and host ops).  Rank 0 prints one JSON
+line with every rank's numbers, the card's name and power limit.
 
     python3 tools/sharded_boot_bench.py [--ranks R] [--rounds 3]
+                                        [--variant regular|regular_v2|nand]
 """
 
 from __future__ import annotations
@@ -79,21 +84,55 @@ def _bytes(tree, local: bool) -> int:
     return sum(out)
 
 
+VARIANTS = {"regular_v2": "regular", "nand": "NAND"}   # --variant -> chip_smoke.v2_runs' run
+
+
+def _setup(variant: str, dev, world: int):
+    """(ctx, secret key, key set with limb_align=world, inputs, expected slots,
+    keygen s, unsharded fn, sharded fn); fn(ctx, *inputs, keys) is the entry
+    point."""
+    import chip_smoke as cs
+    from heongpu_tpu_torch.models import ckks, ckks_boot
+    from heongpu_tpu_torch.models import ckks_boot_ext as ext
+    from heongpu_tpu_torch.parallel import boot_ext_sharded as bes
+    from heongpu_tpu_torch.parallel import boot_sharded as bs
+    from heongpu_tpu_torch.utils import rng
+    if variant == "regular":
+        ctx, sk, keys, ct, z, keygen_s = cs.boot_setup(N, cs.BOOT_Q_BITS, cs.BOOT_CTX,
+                                                       cs.BOOT_CFG, cs.BOOT_HW, 23, dev,
+                                                       limb_align=world)
+        return (ctx, sk, keys, (ct,), z, keygen_s, ckks_boot.regular_bootstrap,
+                bs.regular_bootstrap)
+    ctx = ckks.make_context(N, cs.V2_Q_BITS, device=dev, **cs.V2_CTX)
+    gen = rng.new_generator(41, dev)
+    sk = ckks.keygen_secret(ctx, gen, hamming_weight=cs.V2_HW)
+    pk = ckks.keygen_public(ctx, gen, sk)
+    skd = ckks.keygen_secret(ctx, gen)
+    name = VARIANTS[variant]
+    kw, fn, inputs, want, _ = cs.v2_runs(ctx, sk, pk, gen, N, skd,
+                                         ckks.keygen_public(ctx, gen, skd))[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys = ext.generate_bootstrap_keys_v2(ctx, gen, sk, ext.BootConfigV2(**cs.V2_CFG),
+                                          limb_align=world, **kw)
+    torch.cuda.synchronize()
+    return (ctx, sk, keys, inputs, want, time.perf_counter() - t0, fn,
+            cs.v2_entry(name, bes))
+
+
 def _rank(rank: int, world: int, port: int, args, out_path: str):
     import torch.distributed as dist
 
     import chip_smoke as cs
-    from heongpu_tpu_torch.models import ckks, ckks_boot
-    from heongpu_tpu_torch.parallel import boot_sharded as bs
+    from heongpu_tpu_torch.models import ckks
     from heongpu_tpu_torch.parallel import mesh as meshlib
     from heongpu_tpu_torch.parallel import multihost
 
     multihost.init_process(f"127.0.0.1:{port}", rank, world)
     dev = _device()
     try:
-        ctx, sk, keys, ct, z, keygen_s = cs.boot_setup(N, cs.BOOT_Q_BITS, cs.BOOT_CTX,
-                                                       cs.BOOT_CFG, cs.BOOT_HW, 23, dev,
-                                                       limb_align=world)
+        ctx, sk, keys, inputs, z, keygen_s, unsharded, sharded_fn = _setup(args.variant, dev,
+                                                                          world)
 
         def timed(fn):
             fn()
@@ -109,13 +148,13 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
 
         whole_bytes = {"keys": _bytes((keys.gk, keys.rk), False), "all": _bytes(keys, False)}
         torch.cuda.reset_peak_memory_stats(dev)
-        want = ckks_boot.regular_bootstrap(ctx, ct, keys)
-        whole = timed(lambda: ckks_boot.regular_bootstrap(ctx, ct, keys))
+        want = unsharded(ctx, *inputs, keys)
+        whole = timed(lambda: unsharded(ctx, *inputs, keys))
         whole_peak = torch.cuda.max_memory_allocated(dev)
         mesh = meshlib.make_mesh(world)
         skeys = meshlib.shard_pytree_limb_axis(keys, mesh)
-        sct = ckks.Ciphertext(meshlib.shard_array_limb_axis(ct.c, mesh), ct.size, ct.level,
-                              ct.scale)
+        sin = [ckks.Ciphertext(meshlib.shard_array_limb_axis(ct.c, mesh), ct.size, ct.level,
+                               ct.scale) for ct in inputs]
         del keys
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -129,15 +168,16 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
 
         dist.batch_isend_irecv = spy
         torch.cuda.reset_peak_memory_stats(dev)
-        got = bs.regular_bootstrap(ctx, sct, skeys)
+        got = sharded_fn(ctx, *sin, skeys)
         torch.cuda.synchronize()
         dist.batch_isend_irecv = post
         rows = want.c.shape[-2]
         m = rows // world if rows % world == 0 else rows
         lo = rank * m if rows % world == 0 else 0
-        same = torch.equal(got.c.to_local(), want.c[:, lo:lo + m])
+        same = (torch.equal(got.c.to_local(), want.c[:, lo:lo + m])
+                and (got.level, got.scale) == (want.level, want.scale))
         err, _ = cs.boot_error(ctx, sk, want, z)
-        sharded = timed(lambda: bs.regular_bootstrap(ctx, sct, skeys))
+        sharded = timed(lambda: sharded_fn(ctx, *sin, skeys))
         rec = {"rank": rank, "identical": same, "max_abs_err_unsharded": err,
                "keygen_s": keygen_s, "received_bytes": sum(received),
                "key_bytes_local": _bytes((skeys.gk, skeys.rk), True),
@@ -149,7 +189,7 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
                "sharded_ms": sharded[0], "sharded_runs_ms": sharded[1],
                "unsharded_ms": whole[0], "unsharded_runs_ms": whole[1]}
         dist.barrier()
-        rec["sharded_profile"] = _profile(lambda: bs.regular_bootstrap(ctx, sct, skeys))
+        rec["sharded_profile"] = _profile(lambda: sharded_fn(ctx, *sin, skeys))
         torch.save(rec, f"{out_path}.{rank}")
         dist.barrier()
     finally:
@@ -160,6 +200,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=None, help="cards (default: all of them)")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--variant", choices=("regular", *VARIANTS), default="regular")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sharded_boot_bench: no CUDA device")
@@ -181,7 +222,8 @@ def main() -> int:
     for r in range(world):
         recs.append(torch.load(f"{out_path}.{r}"))
         os.remove(f"{out_path}.{r}")
-    print(json.dumps({"card": _card(), "ranks": world, "n": N, "per_rank": recs}))
+    print(json.dumps({"card": _card(), "ranks": world, "n": N, "variant": args.variant,
+                      "per_rank": recs}))
     return 0 if all(r["identical"] for r in recs) else 1
 
 
