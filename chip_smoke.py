@@ -76,6 +76,11 @@ switch, less-key mode) on a one-rank NCCL group: phase 14's v2 chain at
 N=256 with limb_align=4 keys, and phase 14's regular v2 and NAND runs at
 N=2^16.
 
+Then drives stripped (seeded) keys on the limb-sharded paths (each rank
+regenerates its own block of a key's uniform half: K7 over a row range of
+the key's draw) at the main path's width, and the reference's key sets in
+the port's loader on the card.
+
 Phases (each raises on failure, so the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from heongpu_tpu_torch/kernels/csrc, and print
@@ -277,8 +282,11 @@ Phases (each raises on failure, so the script exits non-zero):
      launched, K6 once a ÷P site: residues equal to phase 13 (c)'s output,
      error within 3e-5; the bytes the placement adds, the peak
      memory_allocated against phase 13 (c)'s, device busy, wall and idle
-     share against the unsharded bootstrap's; (c) a plain-tensor ciphertext
-     raises TypeError, a stripped key ParameterError.
+     share against the unsharded bootstrap's; (c) (a)'s keys are a
+     compressed set that (a) runs whole: the sharded regular_bootstrap on
+     the same keys stripped equals (a)'s residues, K7 once a stripped-key use
+     (stripped_key_uses); a plain-tensor ciphertext raises TypeError, keys
+     stripped with no seed ParameterError.
  22. the bootstrapping variants on limb-sharded ciphertexts
      (parallel/boot_ext_sharded.py) on a one-rank NCCL group, keys placed by
      shard_pytree_limb_axis: (a) N=256, phase 14's v2 configuration with
@@ -294,8 +302,32 @@ Phases (each raises on failure, so the script exits non-zero):
      staged route's rule (each K5 launch of phase 14's run becomes one more
      K1 forward, K1 inverse and mac_keys and a base_conv a digit), the bytes
      the placement adds, peak memory_allocated, device busy, wall and idle
-     share against the unsharded run's; (c) a plain-tensor ciphertext raises
-     TypeError, a stripped key set ParameterError.
+     share against the unsharded run's; (c) (a)'s regular set is a
+     compressed one that (a) runs whole: regular v2 sharded on the same keys
+     stripped equals (a)'s output, K7 once a stripped-key use; a plain-tensor
+     ciphertext raises TypeError, a set stripped with no seeds ParameterError.
+ 23. stripped keys on the sharded paths and the reference's key sets in the
+     loader: (a) K7's row range on the card over the depth-48 key's 54 QP
+     limbs, a (12, 2^16) draw moved and in Montgomery form: each block of a
+     4-way split (14, 14, 14, 12 rows) and rows 13..40, equal to the plain
+     version's row range on the card and to the same rows of K7's whole
+     draw; the whole draw and a rank's block timed; (b) on a one-rank NCCL
+     group at the main path's width, a seeded relin key and Galois key
+     (seeds below 2^32 and apart) stripped and placed by
+     shard_pytree_limb_axis: multiply -> relinearize -> rescale -> rotate by 1,
+     launches counted from 0 and held against plain, K7 once a stripped-key
+     use (2), K5 never, K6 once a ÷P site; every result equal to the
+     unsharded entry points' on the same stripped keys and on the keys
+     whole, the rotation decoded within TOL_DECODE + 4·keyswitch_noise; a
+     stripped key with no seed raises ParameterError; (c) a compressed
+     BootKeysV2 (phase 14's chain at N=256, made on the CPU) and a TFHE
+     BootKey (STD128, made on the card) written by the port's serializer in
+     the reference's format and loaded onto the card: regular v2 (unsharded,
+     and sharded on the placed set) and NAND at B=64 on them equal to the
+     runs on the keys interop builds from their numpy arrays, the cosine
+     coefficients float64.  tools/chip_phase23.py runs the depth-48 bootstrap
+     on phase 13 (c')'s compressed set sharded on one rank, against the
+     unsharded output.
 On every path the calls that end in one ÷P on the card (div_round_sites:
 each keyswitch, each keyswitch finish, each encryption, each BGV mod
 switch) are counted, and the path fails unless K6 launched once for each.  Phase 7 also times K2
@@ -668,12 +700,12 @@ def held_shape(arg):
 
 def launch_shapes(name, args):
     """The shapes that tell a kernel's launches apart: K7's prime count, draw
-    shape and flags (its key is data), its raw-words mode's draw shape, a K1
+    shape, flags and row range (its key is data), its raw-words mode's draw shape, a K1
     split pass's input shape, direction, pass, ranks and rank, every other
     kernel's held_shape of each argument."""
     if name == "threefry_uniform":
-        _, primes, shape, _, moved, mont = args
-        return (len(primes), tuple(shape), moved, mont)
+        _, primes, shape, _, moved, mont, *rows = args
+        return (len(primes), tuple(shape), moved, mont, *rows)
     if name == "threefry_bits":
         return (tuple(args[1]),)
     if name == "ntt_pass":
@@ -1251,6 +1283,48 @@ def boot_keys_to(keys, dev):
         mult_neg_i=tuple(t.to(dev) for t in keys.mult_neg_i), **swk)
 
 
+def expanded_keys(ctx, keys):
+    """A BootKeys or BootKeysV2 with each stripped key's uniform half
+    regenerated over the key's own QP basis (ringkit.ensure_k1), the same
+    keys whole."""
+    import dataclasses
+    from heongpu_tpu_torch.models import ckks, ringkit
+    full = lambda k: None if k is None else dataclasses.replace(
+        k, k1=ringkit.ensure_k1(lambda: ckks._key_ring(ctx, k), k))
+    swk = {f: full(getattr(keys, f)) for f in ("swk_to_sparse", "swk_to_dense") if hasattr(keys, f)}
+    return dataclasses.replace(
+        keys, gk=ringkit.GaloisKey({e: full(k) for e, k in keys.gk.keys.items()}),
+        rk=full(keys.rk), **swk)
+
+
+def stripped_without_seed(keys):
+    """A key set whose Galois and relin keys are stripped with no a_seed to
+    regenerate them from (a misuse: ParameterError)."""
+    import dataclasses
+    from heongpu_tpu_torch.models import ringkit
+    strip = lambda k: dataclasses.replace(k, k1=None, a_seed=None)
+    return dataclasses.replace(
+        keys, gk=ringkit.GaloisKey({e: strip(k) for e, k in keys.gk.keys.items()}),
+        rk=strip(keys.rk))
+
+
+@contextlib.contextmanager
+def stripped_key_draws():
+    """Counts the stripped-key uses (ringkit.ensure_k1 on a key with no k1,
+    each one K7 launch on the card) that the block makes: yields [count]."""
+    from heongpu_tpu_torch.models import ringkit
+    uses, ensure = [0], ringkit.ensure_k1
+
+    def counting(ring, kk, rows=None):
+        uses[0] += kk.k1 is None
+        return ensure(ring, kk, rows)
+    ringkit.ensure_k1 = counting
+    try:
+        yield uses
+    finally:
+        ringkit.ensure_k1 = ensure
+
+
 def boot_key_bytes(keys) -> dict:
     """Bytes of the Galois keys, the relin key, the diagonal plaintexts and
     (a v2 key set with sparse-secret switching) the two switch keys."""
@@ -1650,13 +1724,7 @@ def compressed_bootstrap(ctx, sk, ct, z, cfg, full_bytes, card, errs):
           f"mod 2^32 with another (one Threefry key)")
     if sharing:
         raise AssertionError(f"compressed key set: {sharing} keys share a Threefry key")
-    uses, ensure = [0], ringkit.ensure_k1
-
-    def counting(ring, kk):
-        uses[0] += kk.k1 is None
-        return ensure(ring, kk)
-    ringkit.ensure_k1 = counting
-    try:
+    with stripped_key_draws() as uses:
         kernels.reset_launches()
         t1 = time.perf_counter()
         with held_against_plain(f"compressed bootstrap N={n}", errs), \
@@ -1664,8 +1732,6 @@ def compressed_bootstrap(ctx, sk, ct, z, cfg, full_bytes, card, errs):
             out = ckks_boot.regular_bootstrap(ctx, ct, keys)
             torch.cuda.synchronize()
             launches = dict(kernels.launches)
-    finally:
-        ringkit.ensure_k1 = ensure
     k7 = launches["threefry_uniform"]
     print(f"bootstrap (c') main path, held against plain: {time.perf_counter() - t1:.1f} s, "
           f"launches {launches}; K7 launched {k7} times for {uses[0]} stripped-key uses "
@@ -2490,19 +2556,23 @@ def exact_shapes(chain, x, label):
         div_exact_bound(x, chain))}
 
 
-def threefry_shapes(primes, shape, dev, label, seed=2 ** 34 + 13):
+def threefry_shapes(primes, shape, dev, label, seed=2 ** 34 + 13, rows=None):
     """A time_kernels entry for K7: a seeded key's uniform half at `shape`
     ((d, n), moved behind the digit axis, Montgomery form), with its bound:
     the words written once (K7 reads nothing but its key and table) against
-    its operations."""
+    its operations.  rows=(first, count): only those limbs of the draw over
+    `primes` (a rank's block of a limb-sharded key), labelled
+    "threefry_uniform rows"."""
     from heongpu_tpu_torch.utils import threefry
     key = threefry.key_from_seed(seed)
-    words = len(primes) * int(np.prod(shape))
-    return {f"threefry_uniform {label}": (
-        lambda: threefry.uniform_rns_cuda(key, primes, shape, dev, True, True),
-        lambda: threefry.uniform_rns_plain(key, primes, shape, dev, True, True),
-        f"{tuple(shape)} x {len(primes)} limbs -> {(shape[0], len(primes)) + tuple(shape[1:])}",
-        bound(words * 4 + len(primes) * 16, words * (THREEFRY_OPS + MONT_OPS),
+    lb, lc = (0, len(primes)) if rows is None else rows
+    words = lc * int(np.prod(shape))
+    what = f"{tuple(shape)} x {len(primes)} limbs -> {(shape[0], lc) + tuple(shape[1:])}"
+    return {f"threefry_uniform {'' if rows is None else 'rows '}{label}": (
+        lambda: threefry.uniform_rns_cuda(key, primes, shape, dev, True, True, rows),
+        lambda: threefry.uniform_rns_plain(key, primes, shape, dev, True, True, rows),
+        what + ("" if rows is None else f", rows {lb}..{lb + lc - 1}"),
+        bound(words * 4 + lc * 16, words * (THREEFRY_OPS + MONT_OPS),
               words * (THREEFRY_ALU_OPS + MONT_ALU_OPS)))}
 
 
@@ -3629,14 +3699,16 @@ def boot_sharded_phase(dev, card, errs, boot_c, boot_rec):
     launched, one K6 launch a ÷P site; its residues equal to phase 13 (c)'s
     output (boot_c), its error under TOL_BOOT_PRECISE; the placement's added
     bytes, the peak memory_allocated against phase 13 (c)'s, device busy, wall
-    and idle share of one sharded bootstrap against one unsharded.  (c) Misuse:
-    a plain-tensor ciphertext raises TypeError, a stripped key
-    ParameterError.  Returns (launches of (b), record)."""
-    import dataclasses
+    and idle share of one sharded bootstrap against one unsharded.  (c) The
+    N=256 set of (a) is a compressed one (compress_keys=True) that (a) runs
+    expanded: the sharded regular_bootstrap on the same keys stripped equals
+    (a)'s residues, K7 once a stripped-key use; misuse: a plain-tensor
+    ciphertext raises TypeError, keys stripped with no seed ParameterError.
+    Returns (launches of (b), record)."""
     import torch
     import torch.distributed as dist
     from heongpu_tpu_torch import kernels
-    from heongpu_tpu_torch.models import ckks, ckks_boot, ringkit
+    from heongpu_tpu_torch.models import ckks, ckks_boot
     from heongpu_tpu_torch.parallel import boot_sharded as bs
     from heongpu_tpu_torch.parallel import mesh as meshlib
     from heongpu_tpu_torch.utils import errors
@@ -3647,8 +3719,10 @@ def boot_sharded_phase(dev, card, errs, boot_c, boot_rec):
                                            ct.level, ct.scale)
         # -- 21. (a) N=256, card against CPU ---------------------------------------------
         t0 = time.perf_counter()
-        cctx, _, ckeys, cct, _, _ = boot_setup(256, SH_Q_BITS, SH_CTX, SH_CFG, 16, 24, dev,
-                                               key_dev="cpu", limb_align=PAR_ALIGN)
+        cctx, _, skeys_c, cct, _, _ = boot_setup(256, SH_Q_BITS, SH_CTX, SH_CFG, 16, 24, dev,
+                                                 key_dev="cpu", limb_align=PAR_ALIGN,
+                                                 compress=True)
+        ckeys = expanded_keys(cctx, skeys_c)   # (a) runs the compressed set's keys whole
         raised = ckks_boot.mod_raise(cctx, cct, 1)
         cpu = ckks_boot.coeff_to_slot(cctx, raised, ckeys) + (
             ckks_boot.regular_bootstrap(cctx, cct, ckeys),)
@@ -3671,24 +3745,43 @@ def boot_sharded_phase(dev, card, errs, boot_c, boot_rec):
             raise AssertionError(f"boot_sharded (a): card and CPU differ, or K5 launched")
         rec["n256"] = {"identical_to_cpu": same_a, "launches": launches_a}
 
-        # -- 21. (c) misuse --------------------------------------------------------------
+        # -- 21. (c) the same keys stripped; misuse ----------------------------------------
+        what = "boot_sharded (c) N=256 stripped keys one-rank NCCL group"
+        sdkeys = meshlib.shard_pytree_limb_axis(boot_keys_to(skeys_c, dev), mesh)
+        with stripped_key_draws() as uses:
+            kernels.reset_launches()
+            with held_against_plain(what, errs), div_round_sites(what):
+                got_c = bs.regular_bootstrap(dctx, dct, sdkeys)
+                torch.cuda.synchronize()
+                launches_c = dict(kernels.launches)
+        predicted = stripped_key_uses(skeys_c)
+        same_c = torch.equal(got_c.c.to_local(), got[-1].c.to_local()) and \
+            got_c.level == got[-1].level
+        k7 = launches_c["threefry_uniform"]
+        print(f"{what}: residues identical to (a)'s on the keys whole: {same_c}; K7 launched "
+              f"{k7} times for {uses[0]} stripped-key uses (predicted {predicted}); launches "
+              f"{launches_c}")
+        if not same_c or not k7 == uses[0] == predicted or launches_c["keyswitch2_fused"]:
+            raise AssertionError(f"boot_sharded (c): stripped keys gave other residues, K7 "
+                                 f"launched {k7} times for {uses[0]} uses ({predicted} "
+                                 f"predicted), or K5 launched")
         misuse = {}
         try:
             bs.regular_bootstrap(dctx, ckks.Ciphertext(dct.c.to_local(), 2, dct.level,
                                                        dct.scale), dkeys)
         except TypeError as e:
             misuse["plain_tensor"] = type(e).__name__
-        stripped = ringkit.GaloisKey({e: dataclasses.replace(k, k1=None, a_seed=1)
-                                      for e, k in dkeys.gk.keys.items()})
         try:
-            bs.regular_bootstrap(dctx, dct, dataclasses.replace(dkeys, gk=stripped))
+            bs.regular_bootstrap(dctx, dct, stripped_without_seed(dkeys))
         except errors.ParameterError as e:
-            misuse["stripped_key"] = type(e).__name__
+            misuse["stripped_key_without_seed"] = type(e).__name__
         print(f"boot_sharded (c) misuse: {misuse}")
-        if set(misuse) != {"plain_tensor", "stripped_key"}:
+        if set(misuse) != {"plain_tensor", "stripped_key_without_seed"}:
             raise AssertionError(f"boot_sharded (c): a misuse did not raise: {misuse}")
+        rec["stripped"] = {"identical_to_a": same_c, "launches": launches_c,
+                           "stripped_key_uses": uses[0], "predicted_uses": predicted}
         rec["misuse"] = misuse
-        del cctx, ckeys, cct, raised, cpu, dctx, dkeys, dct, got
+        del cctx, ckeys, skeys_c, sdkeys, cct, raised, cpu, dctx, dkeys, dct, got, got_c
 
         # -- 21. (b) depth 48 at N, phase 13 (c)'s keys and input ----------------------------
         t0 = time.perf_counter()
@@ -3777,14 +3870,15 @@ def boot_v2_sharded_phase(dev, card, errs, refs, v2_rec, full=V2_SHARDED_FULL):
     launches against the staged route's rule (for each K5 launch of phase 14's run, one
     more K1 forward, K1 inverse and mac_keys, and base_conv a digit), the
     bytes the placement adds, peak memory_allocated, device busy, wall and
-    idle share of one sharded run against one unsharded.  (c) Misuse: a
-    plain-tensor ciphertext raises TypeError, a stripped key set
-    ParameterError.  Returns (the launches of (b), summed; record)."""
-    import dataclasses
+    idle share of one sharded run against one unsharded.  (c) The regular set
+    of (a) is a compressed one that (a) runs expanded: regular v2 sharded on
+    the same keys stripped equals (a)'s output, K7 once a stripped-key use;
+    misuse: a plain-tensor ciphertext raises TypeError, a set stripped with
+    no seeds ParameterError.  Returns (the launches of (b), summed; record)."""
     import torch
     import torch.distributed as dist
     from heongpu_tpu_torch import kernels
-    from heongpu_tpu_torch.models import ckks, ringkit
+    from heongpu_tpu_torch.models import ckks
     from heongpu_tpu_torch.models import ckks_boot_ext as ext
     from heongpu_tpu_torch.parallel import boot_ext_sharded as bes
     from heongpu_tpu_torch.parallel import mesh as meshlib
@@ -3806,18 +3900,23 @@ def boot_v2_sharded_phase(dev, card, errs, refs, v2_rec, full=V2_SHARDED_FULL):
         runs = v2_runs(cctx, sk, pk, g, 256, skd, ckks.keygen_public(cctx, g, skd))
         to_dev = lambda c: place(ckks.Ciphertext(c.c.to(dev), c.size, c.level, c.scale))
         what = "boot_v2_sharded (a) N=256 one-rank NCCL group"
-        keys_by, cpu_outs, same_a = {}, {}, {}
+        keys_by, cpu_outs, same_a, card_outs = {}, {}, {}, {}
         for name, (kw, fn, inputs, _, _) in runs.items():
             if repr(kw) not in keys_by:
                 keys_by[repr(kw)] = ext.generate_bootstrap_keys_v2(
-                    cctx, g, skd if name == "sparse" else sk, cfg, limb_align=PAR_ALIGN, **kw)
+                    cctx, g, skd if name == "sparse" else sk, cfg, limb_align=PAR_ALIGN,
+                    compress_keys=name == "regular", **kw)
             cpu_outs[name] = fn(cctx, *inputs, keys_by[repr(kw)])
+        # the regular set is a compressed one: (a) runs it whole, (c) stripped
+        stripped_set = keys_by[repr({})]
+        keys_by[repr({})] = expanded_keys(cctx, stripped_set)
         placed = {k: meshlib.shard_pytree_limb_axis(boot_keys_to(v, dev), mesh)
                   for k, v in keys_by.items()}
         kernels.reset_launches()
         with held_against_plain(what, errs), div_round_sites(what):
             for name, (kw, _, inputs, _, _) in runs.items():
-                out = v2_entry(name, bes)(dctx, *map(to_dev, inputs), placed[repr(kw)])
+                out = card_outs[name] = v2_entry(name, bes)(dctx, *map(to_dev, inputs),
+                                                            placed[repr(kw)])
                 torch.cuda.synchronize()
                 want = cpu_outs[name]
                 same_a[name] = (torch.equal(out.c.to_local().cpu(), want.c)
@@ -3830,28 +3929,45 @@ def boot_v2_sharded_phase(dev, card, errs, refs, v2_rec, full=V2_SHARDED_FULL):
             raise AssertionError("boot_v2_sharded (a): card and CPU differ, or K5 launched")
         rec["n256"] = {"identical_to_cpu": same_a, "launches": launches_a}
 
-        # -- 22. (c) misuse --------------------------------------------------------------
+        # -- 22. (c) the regular set stripped; misuse ------------------------------------
         dkeys = placed[repr({})]
         dct = to_dev(runs["regular"][2][0])
+        what = "boot_v2_sharded (c) N=256 regular v2 on stripped keys one-rank NCCL group"
+        sdkeys = meshlib.shard_pytree_limb_axis(boot_keys_to(stripped_set, dev), mesh)
+        with stripped_key_draws() as uses:
+            kernels.reset_launches()
+            with held_against_plain(what, errs), div_round_sites(what):
+                got_c = bes.regular_bootstrap_v2(dctx, dct, sdkeys)
+                torch.cuda.synchronize()
+                launches_c = dict(kernels.launches)
+        want = card_outs["regular"]
+        same_c = (torch.equal(got_c.c.to_local(), want.c.to_local())
+                  and (got_c.level, got_c.scale) == (want.level, want.scale))
+        k7 = launches_c["threefry_uniform"]
+        print(f"{what}: residues, level and scale identical to (a)'s on the keys whole: "
+              f"{same_c}; K7 launched {k7} times for {uses[0]} stripped-key uses; launches "
+              f"{launches_c}")
+        if not same_c or not k7 == uses[0] > 0 or launches_c["keyswitch2_fused"]:
+            raise AssertionError(f"boot_v2_sharded (c): stripped keys gave other residues, K7 "
+                                 f"launched {k7} times for {uses[0]} uses, or K5 launched")
         misuse = {}
         try:
             bes.regular_bootstrap_v2(dctx, ckks.Ciphertext(dct.c.to_local(), 2, dct.level,
                                                            dct.scale), dkeys)
         except TypeError as e:
             misuse["plain_tensor"] = type(e).__name__
-        strip = lambda k: dataclasses.replace(k, k1=None, a_seed=1)
-        stripped = dataclasses.replace(
-            dkeys, gk=ringkit.GaloisKey({e: strip(k) for e, k in dkeys.gk.keys.items()}),
-            rk=strip(dkeys.rk))
         try:
-            bes.regular_bootstrap_v2(dctx, dct, stripped)
+            bes.regular_bootstrap_v2(dctx, dct, stripped_without_seed(dkeys))
         except errors.ParameterError as e:
-            misuse["stripped_key_set"] = type(e).__name__
+            misuse["stripped_key_set_without_seeds"] = type(e).__name__
         print(f"boot_v2_sharded (c) misuse: {misuse}")
-        if set(misuse) != {"plain_tensor", "stripped_key_set"}:
+        if set(misuse) != {"plain_tensor", "stripped_key_set_without_seeds"}:
             raise AssertionError(f"boot_v2_sharded (c): a misuse did not raise: {misuse}")
+        rec["stripped"] = {"identical_to_a": same_c, "launches": launches_c,
+                           "stripped_key_uses": uses[0]}
         rec["misuse"] = misuse
-        del cctx, dctx, runs, keys_by, cpu_outs, placed, dkeys, dct, stripped
+        del cctx, dctx, runs, keys_by, cpu_outs, card_outs, placed, dkeys, dct, stripped_set
+        del sdkeys, got_c
 
         # -- 22. (b) phase 14 (b)'s runs at N, their keys made again ----------------------
         ctx, sk = refs["ctx"], refs["sk"]
@@ -3938,6 +4054,258 @@ def boot_v2_sharded_phase(dev, card, errs, refs, v2_rec, full=V2_SHARDED_FULL):
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     return total, rec
+
+
+# Stripped keys on the limb-sharded paths and the reference's key sets in the
+# port's loader (phase 23).  The seeded keys' a_seed: below 2^32 and apart (the
+# port's rule; the reference's compressed layout at 2^34 and up keeps only the
+# seed mod 2^32).
+STRIP_SEEDS = (2 ** 31 + 11, 2 ** 31 + 12)    # the relin key's and the Galois key's
+K7_ROW_SPLIT = 4       # ranks of the row blocks K7 draws in (a)
+K7_ODD_ROWS = (13, 28)     # an odd block: rows 13..40 of the 54
+
+
+def depth48_qp_primes(n):
+    """The depth-48 chain's QP primes (BOOT_Q_BITS, then BOOT_CTX's six 30-bit
+    special primes) in the order ckks.make_context generates them, before it
+    pairs the scale primes."""
+    from heongpu_tpu_torch.utils import nt
+    used, q = set(), []
+    for b in BOOT_Q_BITS:
+        pr = nt.generate_ntt_primes(b, 1, n, exclude=used)[0]
+        used.add(pr)
+        q.append(pr)
+    return q + nt.generate_ntt_primes(30, BOOT_CTX["p_count"], n, exclude=used)
+
+
+def k7_row_blocks(rows: int, split: int = K7_ROW_SPLIT) -> list:
+    """(first, count) of each rank's block of `rows` limbs split `split` ways
+    as torch.chunk splits them, and K7_ODD_ROWS."""
+    m = -(-rows // split)
+    return [(lo, min(m, rows - lo)) for lo in range(0, rows, m)] + [K7_ODD_ROWS]
+
+
+def v2_wire_fields(keys) -> dict:
+    """interop.boot_keys_v2_from_numpy's arguments for a BootKeysV2: every
+    array as the reference's numpy uint32 (interop.to_numpy), seeds and
+    stripped halves kept."""
+    import dataclasses
+    from heongpu_tpu_torch import interop
+    u = interop.to_numpy
+    key = lambda k: None if k is None else {"k0": u(k.k0), "k1": u(k.k1), "a_seed": k.a_seed}
+    gal = lambda k: {f: u(getattr(k, f)) for f in ("k0", "k1", "perm_coeff_src",
+                                                   "perm_coeff_neg", "perm_ntt", "galois_elt",
+                                                   "inv_form", "a_seed")}
+    piece = lambda p: dict(level=p.level, n1=p.n1, pt_scale=p.pt_scale, depth=p.depth,
+                           giants=[(g, b, u(pts)) for g, b, pts in p.giants])
+    return dict(gk={e: gal(k) for e, k in keys.gk.keys.items()}, rk=key(keys.rk),
+                cfg=dataclasses.asdict(keys.cfg), msg_scale=keys.msg_scale, variant=keys.variant,
+                ctos_pieces=[piece(p) for p in keys.ctos_pieces],
+                stoc_pieces=[piece(p) for p in keys.stoc_pieces],
+                mult_i=[u(t) for t in keys.mult_i], mult_neg_i=[u(t) for t in keys.mult_neg_i],
+                cos_coeffs=keys.cos_coeffs, swk_to_sparse=key(keys.swk_to_sparse),
+                swk_to_dense=key(keys.swk_to_dense))
+
+
+def k7_row_range_checks(dev, card, errs):
+    """Phase 23 (a): K7's row range on the card, over the depth-48 key's 54 QP
+    limbs, a (12, N) draw moved behind the digit axis in Montgomery form (the
+    largest Galois key's k1): each rank's block of a 4-way split and the odd
+    block K7_ODD_ROWS, each equal to the plain version's same row range on the
+    card and to the same rows of K7's whole draw; the row-range draw of the
+    second block timed (time_kernels' "threefry_uniform rows").  Returns
+    (record, time_kernels' record)."""
+    import torch
+    from heongpu_tpu_torch.utils import threefry
+    primes = depth48_qp_primes(N)
+    shape, seed = (12, N), 2 ** 34 + 23
+    key = threefry.key_from_seed(seed)
+    whole = threefry.uniform_rns_cuda(key, primes, shape, dev, True, True)
+    out = {}
+    for lb, lc in k7_row_blocks(len(primes)):
+        got = threefry.uniform_rns_cuda(key, primes, shape, dev, True, True, (lb, lc))
+        e_plain = max_err(got, threefry.uniform_rns_plain(key, primes, shape, dev, True, True,
+                                                          (lb, lc)))
+        e_whole = max_err(got, whole[:, lb:lb + lc])
+        torch.cuda.synchronize()
+        errs["threefry_uniform"] = max(errs["threefry_uniform"], e_plain, e_whole)
+        out[f"{lb}..{lb + lc - 1}"] = {"against_plain": e_plain, "against_whole": e_whole}
+        print(f"K7 threefry_uniform rows {lb}..{lb + lc - 1} of {shape} x {len(primes)} limbs "
+              f"(moved, Montgomery): err={e_plain} against the plain row range, err={e_whole} "
+              f"against the rows of K7's whole draw")
+    if any(v for r in out.values() for v in r.values()):
+        raise AssertionError(f"K7's row range differs from the plain version or the whole draw: "
+                             f"{out}")
+    kern = time_kernels({**threefry_shapes(primes, shape, dev, "depth-48 key", seed),
+                         **threefry_shapes(primes, shape, dev, "depth-48 key, a rank's block",
+                                           seed, rows=k7_row_blocks(len(primes))[1])},
+                        "the depth-48 key's", N, card, errs)
+    del whole
+    return out, kern
+
+
+def stripped_phase(dev, card, errs, ctx, sk):
+    """Phase 23: stripped (seeded) keys on the limb-sharded paths, and the
+    reference's key sets in the port's loader.  (a) k7_row_range_checks.
+    (b) On a one-rank NCCL group at the main path's width (ctx, sk: N=2^16,
+    twelve 29-bit Q primes, Method II, alpha 4): a relin key and a Galois key
+    (step 1) seeded (STRIP_SEEDS) and stripped, placed by
+    shard_pytree_limb_axis; multiply -> relinearize -> rescale -> rotate by 1
+    on two fresh ciphertexts, launches counted from 0 and held against plain:
+    K7 once a stripped-key use (two), K5 never, K6 once a keyswitch; every
+    result equal to the unsharded entry points' on the same stripped keys and
+    on the keys whole; a stripped key with no seed raises ParameterError.
+    (c) The reference's objects on the card: a BootKeysV2 (phase 14's chain
+    at N=256, compress_keys=True, made on the CPU) and a TFHE BootKey
+    (STD128, made on the card), each written by the port's serializer in the
+    reference's format and loaded onto the card; regular v2 (unsharded, and
+    sharded on the placed set) and NAND on the loaded keys equal to the same
+    runs on the keys interop builds from their numpy arrays.  Returns
+    (launches of (b), record)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from heongpu_tpu_torch import interop, kernels
+    from heongpu_tpu_torch.models import ckks, ringkit, tfhe
+    from heongpu_tpu_torch.models import ckks_boot_ext as ext
+    from heongpu_tpu_torch.parallel import boot_ext_sharded as bes
+    from heongpu_tpu_torch.parallel import ckks_sharded as cks
+    from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.utils import errors, rng, serializer
+    t0 = time.perf_counter()
+    rec = {}
+    # -- 23. (a) K7's row range -------------------------------------------------------
+    rec["k7_rows"], rec["kernels"] = k7_row_range_checks(dev, card, errs)
+
+    # -- 23. (b) the sharded step on stripped keys ------------------------------------
+    g = rng.new_generator(230, dev)
+    rk_full = ckks.keygen_relin(ctx, g, sk, a_seed=STRIP_SEEDS[0])
+    gk_full = ckks.keygen_galois(ctx, g, sk, steps=[1], include_conj=False,
+                                 a_seed=STRIP_SEEDS[1])
+    rk, gk = ringkit.strip_seeded(rk_full), ringkit.strip_seeded(gk_full)
+    pk = ckks.keygen_public(ctx, g, sk)
+    z = np.random.default_rng(230).uniform(-1, 1, N // 2)
+    a, b = (ckks.encrypt(ctx, pk, ckks.encode(ctx, v), g) for v in (z, z[::-1].copy()))
+
+    def step(mod, rk_, gk_, x, y):
+        out = {"mult": mod.multiply(ctx, x, y)}
+        out["relin"] = mod.relinearize(ctx, out["mult"], rk_)
+        out["rescale"] = mod.rescale(ctx, out["relin"])
+        out["rotate"] = mod.rotate(ctx, out["rescale"], gk_, 1)
+        return out
+
+    full = step(ckks, rk_full, gk_full, a, b)
+    with stripped_key_draws() as uses_u:
+        kernels.reset_launches()
+        unsharded = step(ckks, rk, gk, a, b)
+        torch.cuda.synchronize()
+        launches_u = dict(kernels.launches)
+    mesh = one_rank_group()
+    try:
+        place = lambda ct: ckks.Ciphertext(meshlib.ct_sharding(mesh).place(ct.c), ct.size,
+                                           ct.level, ct.scale)
+        srk, sgk = (meshlib.shard_pytree_limb_axis(k, mesh) for k in (rk, gk))
+        sa, sb = place(a), place(b)
+        what = f"stripped keys (b) sharded step N={N} one-rank NCCL group"
+        with stripped_key_draws() as uses:
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            with held_against_plain(what, errs), div_round_sites(what) as sites:
+                sharded = step(cks, srk, sgk, sa, sb)
+                torch.cuda.synchronize()
+                launches = dict(kernels.launches)
+            held_s = time.perf_counter() - t1
+        same = {op: torch.equal(sharded[op].c.to_local(), unsharded[op].c)
+                and torch.equal(unsharded[op].c, full[op].c) for op in full}
+        k7 = launches["threefry_uniform"]
+        dec = ckks.decode(ctx, ckks.decrypt(ctx, sk, ckks.Ciphertext(
+            sharded["rotate"].c.to_local(), 2, sharded["rotate"].level,
+            sharded["rotate"].scale)))
+        want = np.roll(z * z[::-1], -1)
+        dec_err = float(np.abs(dec - want).max())
+        print(f"{what}: mult -> relin -> rescale -> rotate(1) on a stripped relin key (a_seed "
+              f"{rk.a_seed}) and Galois key (a_seed {STRIP_SEEDS[1]}), each op equal to the "
+              f"unsharded entry points on the same stripped keys and on the keys whole: {same}; "
+              f"K7 launched {k7} times for {uses[0]} stripped-key uses (unsharded: "
+              f"{launches_u['threefry_uniform']} for {uses_u[0]}); launches {launches}; ÷P sites "
+              f"{dict(sites)}; decode of the rotation {dec_err:.3e} (limit "
+              f"{TOL_DECODE + 4 * keyswitch_noise(ctx):.3e}); held against plain {held_s:.1f} s")
+        if not all(same.values()):
+            raise AssertionError(f"stripped keys (b): the sharded step differs: {same}")
+        if not k7 == uses[0] == 2 or launches["keyswitch2_fused"]:
+            raise AssertionError(f"stripped keys (b): K7 launched {k7} times for {uses[0]} uses "
+                                 f"(2 expected), or K5 launched: {launches}")
+        require_launched(what, launches, ("ntt_fwd", "ntt_inv", "base_conv", "mac_keys",
+                                          "div_round", "threefry_uniform"))
+        if not np.isfinite(dec).all() or not dec_err <= TOL_DECODE + 4 * keyswitch_noise(ctx):
+            raise AssertionError(f"stripped keys (b): the rotation decodes {dec_err} off")
+        misuse = {}
+        try:
+            cks.relinearize(ctx, sharded["mult"], dataclasses.replace(srk, a_seed=None))
+        except errors.ParameterError as e:
+            misuse["stripped_key_without_seed"] = type(e).__name__
+        if not misuse:
+            raise AssertionError("stripped keys (b): a stripped key with no seed did not raise")
+        rec["sharded_step"] = {"identical": same, "launches": launches,
+                               "unsharded_launches": launches_u, "stripped_key_uses": uses[0],
+                               "sites": dict(sites), "decode_err": dec_err, "held_s": held_s,
+                               "misuse": misuse}
+        del full, unsharded, sharded, srk, sgk, sa, sb
+
+        # -- 23. (c) the reference's key sets through the port's loader, on the card -----
+        t1 = time.perf_counter()
+        cctx = ckks.make_context(256, V2_Q_BITS, device="cpu", **V2_CTX)
+        dctx = ckks.make_context(256, V2_Q_BITS, device=dev, **V2_CTX)
+        cg = rng.new_generator(232, "cpu")
+        csk = ckks.keygen_secret(cctx, cg, hamming_weight=V2_HW)
+        cpk = ckks.keygen_public(cctx, cg, csk)
+        keys = ext.generate_bootstrap_keys_v2(cctx, cg, csk, ext.BootConfigV2(**V2_CFG),
+                                              compress_keys=True)
+        wire = serializer.serialize(keys)
+        loaded = serializer.deserialize(wire, device=dev)
+        carried = interop.boot_keys_v2_from_numpy(**v2_wire_fields(keys), device=dev)
+        (ct,), _, _ = v2_runs(cctx, csk, cpk, cg, 256, csk, cpk)["regular"][2:]
+        dct = ckks.Ciphertext(ct.c.to(dev), ct.size, ct.level, ct.scale)
+        on_loaded = ext.regular_bootstrap_v2(dctx, dct, loaded)
+        on_carried = ext.regular_bootstrap_v2(dctx, dct, carried)
+        sharded_v2 = bes.regular_bootstrap_v2(dctx, place(dct),
+                                              meshlib.shard_pytree_limb_axis(loaded, mesh))
+        same_v2 = {"unsharded": torch.equal(on_loaded.c, on_carried.c),
+                   "sharded": torch.equal(sharded_v2.c.to_local(), on_carried.c),
+                   "cos_coeffs": loaded.cos_coeffs.dtype == np.float64
+                   and np.array_equal(loaded.cos_coeffs, keys.cos_coeffs)}
+        print(f"stripped keys (c) N=256 BootKeysV2 (compressed, {len(wire)} bytes in the "
+              f"reference's format, loaded onto the card): regular v2 on the loaded set equal to "
+              f"the run on interop's set: {same_v2}")
+        tctx = tfhe.make_context(device=dev)
+        tg = rng.new_generator(233, dev)
+        tsk = tfhe.keygen_secret(tg, tctx.n, device=dev)
+        bk = tfhe.keygen_boot(tctx, tg, tsk)
+        twire = serializer.serialize(bk, level=1)
+        tloaded = serializer.deserialize(twire, device=dev)
+        u = interop.to_numpy
+        tcarried = interop.tfhe_boot_key_from_numpy(u(bk.bk), u(bk.ksk_a), u(bk.ksk_b),
+                                                    device=dev)
+        r = np.random.default_rng(233)
+        x, y = (r.integers(0, 2, TFHE_B).astype(bool) for _ in range(2))
+        cx, cy = (tfhe.encrypt(tctx, tsk, v, tg) for v in (x, y))
+        n_loaded, n_carried = (tfhe.NAND(tctx, k, cx, cy) for k in (tloaded, tcarried))
+        same_nand = (torch.equal(n_loaded.a, n_carried.a) and torch.equal(n_loaded.b, n_carried.b)
+                     and np.array_equal(tfhe.decrypt(tctx, tsk, n_loaded), ~(x & y)))
+        print(f"stripped keys (c) TFHE BootKey at n={tctx.n} ({len(twire)} bytes in the "
+              f"reference's format, loaded onto the card): NAND at B={TFHE_B} equal to the run on "
+              f"interop's key and to the truth table: {same_nand}; "
+              f"{time.perf_counter() - t1:.1f} s [{card}]")
+        if not all(same_v2.values()) or not same_nand:
+            raise AssertionError(f"stripped keys (c): runs on the loaded keys differ: {same_v2}, "
+                                 f"NAND {same_nand}")
+        rec["loader"] = {"v2": same_v2, "v2_bytes": len(wire), "nand": same_nand,
+                         "boot_key_bytes": len(twire)}
+    finally:
+        dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return launches, rec
 
 
 def main() -> int:
@@ -4380,12 +4748,16 @@ def run(dev) -> int:
     bv2_launches, bv2_rec = boot_v2_sharded_phase(dev, card, errs, v2_rec.pop("sharded_refs"),
                                                   v2_rec)
     print(f"phase 22: {time.perf_counter() - t22:.1f} s")
-    # each kernel's launches on the fourteen paths, each run counted from 0 just before it
+    # -- 23. stripped keys on the sharded paths, the reference's key sets in the loader --
+    t23 = time.perf_counter()
+    st_launches, st_rec = stripped_phase(dev, card, errs, ctx, sk)
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s")
+    # each kernel's launches on the fifteen paths, each run counted from 0 just before it
     ckks_launches = launches
     launches = {k: ckks_launches[k] + rot_launches[k] + tfhe_launches[k] + boot_launches[k]
                 + v2_launches[k] + bfv_launches[k] + m1_launches[k] + bgv_launches[k]
                 + mpc_launches[k] + par_launches[k] + sh_launches[k] + bsh_launches[k]
-                + bv2_launches[k] for k in launches}
+                + bv2_launches[k] + st_launches[k] for k in launches}
     # K6's t-exact mode at BGV's keyswitch shape, K7 at the depth-48 bootstrap key's, its
     # raw-words mode at MPC BFV's widest draw (a relin round's gaussian, (29, 2^15))
     k7_kern = boot_rec["compressed"]["kernels"]
@@ -4440,7 +4812,7 @@ def run(dev) -> int:
                 for phase, recs in (("main", k2k6), ("bootstrap", boot_full["kernels"]),
                                     ("bfv", bfv_default["kernels"]), ("bgv", bgv_kern),
                                     ("compressed bootstrap", k7_kern), ("mpc", mpc_kern),
-                                    ("parallel", par_kern))
+                                    ("parallel", par_kern), ("stripped keys", st_rec["kernels"]))
                 for lbl, r in recs.items()}
     main_label = {"mac_keys": ("main", "mac_keys"),
                   "base_conv": ("main", "base_conv 4->16 B=1 scaled"),
@@ -4479,6 +4851,7 @@ def run(dev) -> int:
               "ckks_sharded_launches": sh_launches, "ckks_sharded": sh_rec,
               "boot_sharded_launches": bsh_launches, "boot_sharded": bsh_rec,
               "boot_v2_sharded_launches": bv2_launches, "boot_v2_sharded": bv2_rec,
+              "stripped_launches": st_launches, "stripped": st_rec,
               "div_round_runs": DIV_ROUND_RUNS}
     busy = {"CKKS mult+relin (Method II)": ckks_prof,
             "CKKS mult+relin, Method I": m1_rec["profile"],

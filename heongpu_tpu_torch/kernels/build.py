@@ -44,7 +44,7 @@ SIGNATURES = {
     "hf_base_conv": [_P] * 7 + [_I] * 5 + [_P],
     "hf_div_round": [_P, _P, _P, _I, _I, _I, _I, _P],
     "hf_div_exact_t": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "hf_threefry_uniform": [_P, _P, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P],
+    "hf_threefry_uniform": [_P, _P, _U, _U, _U, _U, _I, _I, _I, _I, _I, _I, _I, _P],
     "hf_threefry_bits": [_P, _U, _U, _I, _P],
     "hf_blind_rotate": [_I, _P, _P, _P, _P, _I, _I] + [_P] * 17 + [_U, _U, _P],
     "hf_keyswitch2_fused": [_P] * 7 + [_I] * 6 + [_P] * 15 + [_P],

@@ -20,7 +20,12 @@
 //   the offsets ptxas loads the key schedules into uniform registers, 6% slower).  A
 //   word's counter (l*d + j)*n + i and its output position, in the draw layout or
 //   (d, L, n) when `moved`, are 32-bit multiply-adds; the wrapper refuses draws of
-//   2^32 elements or more.  A thread's
+//   2^32 elements or more.
+// - A row range.  The grid may cover only the limbs [lb, lb + rows) of the draw: the
+//   counters stay those of the whole draw of L_all limbs, and the rows land in an
+//   output of `rows` limbs (row l - lb).  A rank of a limb-sharded key regenerates
+//   its block of a stripped key's rows this way, equal to the same rows of the
+//   whole draw.  The whole draw is lb = 0, rows = L_all.  A thread's
 //   words have no branch between them, so their hashes interleave; a word past the
 //   row's end is hashed and not stored.  (tools/k6_k7_bench.py --variants builds
 //   other words a thread and threads a block through the K7_* macros below.)
@@ -104,7 +109,8 @@ struct DrawParams {
   const uint4* tab;  // per limb: p, mu = floor(2^32/p), r1 = 2^32 mod p, floor(r1*2^32/p)
   Schedule hi, lo;   // the (hi, lo) keys of jax.random.split(key)
   u32 one;           // 1, unknown to the compiler (see add)
-  int L, d, n, l0, j0;
+  int L, d, n, l0, j0;  // L: the output's limbs (the row range's length)
+  int lb;               // the first limb of the row range in the whole draw
   int moved, mont;
 };
 
@@ -167,7 +173,8 @@ __global__ void __launch_bounds__(kThreads) threefry_uniform_kernel(const DrawPa
   const u32 i0 = blockIdx.x * (kThreads * kWords) + threadIdx.x;
   if (i0 >= n) return;
   const u32 row = (l * A.d + j) * n;  // the counter of the row's word 0
-  u32* out = A.out + (A.moved ? (j * A.L + l) * n : row);
+  const u32 lo = l - A.lb;             // the limb's row in the output
+  u32* out = A.out + (A.moved ? (j * A.L + lo) * n : (lo * A.d + j) * n);
   const uint4 t = __ldg(A.tab + l);  // (p, mu, r1, r1_sh)
   const u32 neg_p = 0u - t.x;
   u32 v[kWords];
@@ -217,23 +224,29 @@ int launch_threefry_bits(const BitsParams& A, unsigned blocks, cudaStream_t stre
 
 }  // namespace
 
-// out = the uniform residues of rng.uniform_rns(key, primes, (d, n)): (L, d, n), or
-// (d, L, n) when `moved`; in Montgomery form when `mont`.  tab holds (p, floor(2^32/p),
-// 2^32 mod p, its Shoup companion) per limb; (hi0, hi1) and (lo0, lo1) are the keys
-// jax.random.split(key) gives.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for an empty draw or one of 2^32 elements or more.
+// out = the uniform residues of rng.uniform_rns(key, primes, (d, n)) at the limbs
+// [l_begin, l_begin + l_count) of the L_all primes: (l_count, d, n), or (d, l_count, n)
+// when `moved`; in Montgomery form when `mont`.  Each word is the word of the whole
+// draw of L_all limbs at the same (limb, digit, index).  tab holds (p, floor(2^32/p),
+// 2^32 mod p, its Shoup companion) for each of the L_all limbs; (hi0, hi1) and
+// (lo0, lo1) are the keys jax.random.split(key) gives.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an empty range, one outside [0, L_all), or a whole draw of
+// 2^32 elements or more.
 extern "C" int hf_threefry_uniform(void* out, const void* tab, unsigned hi0, unsigned hi1,
-                                   unsigned lo0, unsigned lo1, int L, int d, int n, int moved,
-                                   int mont, void* stream) {
-  const unsigned long long total = 1ull * L * d * n;
-  if (L <= 0 || d <= 0 || n <= 0 || total >= (1ull << 32))
+                                   unsigned lo0, unsigned lo1, int L_all, int l_begin,
+                                   int l_count, int d, int n, int moved, int mont,
+                                   void* stream) {
+  const unsigned long long total = 1ull * L_all * d * n;
+  if (L_all <= 0 || d <= 0 || n <= 0 || total >= (1ull << 32) || l_begin < 0 || l_count <= 0
+      || l_count > L_all - l_begin)
     return static_cast<int>(cudaErrorInvalidValue);
   DrawParams A{static_cast<u32*>(out), static_cast<const uint4*>(tab), schedule(hi0, hi1),
-               schedule(lo0, lo1), 1u, L, d, n, 0, 0, moved, mont};
+               schedule(lo0, lo1), 1u, l_count, d, n, 0, 0, l_begin, moved, mont};
   const unsigned bx = (static_cast<unsigned>(n) + per_block - 1) / per_block;
-  for (A.l0 = 0; A.l0 < L; A.l0 += kGridMax)
+  const int l_end = l_begin + l_count;
+  for (A.l0 = l_begin; A.l0 < l_end; A.l0 += kGridMax)
     for (A.j0 = 0; A.j0 < d; A.j0 += kGridMax) {
-      const dim3 grid{bx, static_cast<unsigned>(L - A.l0 < kGridMax ? L - A.l0 : kGridMax),
+      const dim3 grid{bx, static_cast<unsigned>(l_end - A.l0 < kGridMax ? l_end - A.l0 : kGridMax),
                       static_cast<unsigned>(d - A.j0 < kGridMax ? d - A.j0 : kGridMax)};
       const int err = launch_threefry(A, grid, static_cast<cudaStream_t>(stream));
       if (err) return err;

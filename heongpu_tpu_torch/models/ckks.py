@@ -227,12 +227,19 @@ def _ring(ctx: CkksContext) -> RingView:
 
 def _ring_at(ctx: CkksContext, level: int) -> RingView:
     """Ring view over the level basis (active Q prefix + specials), so keys
-    can be generated at their use level."""
+    can be generated at their use level.  Built once a level and kept on the
+    context: base_qp_at gathers its rows with an index list, a copy to the
+    card that waits for the card, and a stripped key asks for its ring at
+    every use (_key_ring)."""
     if level == 0:
         return _ring(ctx)
-    ka = ctx.active(level)
-    return RingView(ctx.n, ctx.q_primes[:ka], ctx.p_primes, ctx.base_q_at(level),
-                    ctx.base_qp_at(level), ctx.ntt_qp_at(level), ctx.div_p_at(level))
+    key = ("ring", level)
+    if key not in ctx._level_tables:
+        ka = ctx.active(level)
+        ctx._level_tables[key] = RingView(ctx.n, ctx.q_primes[:ka], ctx.p_primes,
+                                          ctx.base_q_at(level), ctx.base_qp_at(level),
+                                          ctx.ntt_qp_at(level), ctx.div_p_at(level))
+    return ctx._level_tables[key]
 
 
 def _sk_at(ctx: CkksContext, sk: SecretKey, level: int) -> SecretKey:

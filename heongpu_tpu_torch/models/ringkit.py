@@ -116,14 +116,15 @@ def keygen_secret(ring: RingView, key, hamming_weight: Optional[int] = None) -> 
     return SecretKey(s, mm.to_mont(s_ntt, b.col(), b.col("r1")), hw)
 
 
-def _seeded_a(ring: RingView, a_seed: int, d: Optional[int], mont: bool):
+def _seeded_a(ring: RingView, a_seed: int, d: Optional[int], mont: bool, rows=None):
     """The uniform NTT-domain half of a seed-expanded key, from its public
     seed: (k+p, n), or (d, k+p, n) from a (d, n) draw with the limb axis
-    moved behind the digit axis; in Montgomery form when `mont`.  One K7
-    launch on the card."""
+    moved behind the digit axis; in Montgomery form when `mont`.
+    rows=(first, count): only those QP rows of it.  One K7 launch on the
+    card."""
     shape = (ring.n,) if d is None else (d, ring.n)
     return threefry.uniform_rns(threefry.key_from_seed(a_seed), ring.qp_primes, shape,
-                                ring.device, moved=d is not None, mont=mont)
+                                ring.device, moved=d is not None, mont=mont, rows=rows)
 
 
 def _draw_a(ring: RingView, key, a_seed: Optional[int], d: Optional[int]):
@@ -293,12 +294,14 @@ def strip_seeded(obj):
     return obj
 
 
-def ensure_k1(ring, kk):
+def ensure_k1(ring, kk, rows=None):
     """The uniform half k1 of a KSKey or GaloisKeyOne: the stored one, or
     for a stripped key (k1=None) the one regenerated from its a_seed on the
     ring's device (one K7 launch on the card).  `ring` is the RingView of
     the basis the key was made in, or a function of no arguments that
-    returns it, called only for a stripped key.  A stripped key with no
+    returns it, called only for a stripped key.  rows=(first, count)
+    regenerates only those QP rows, (d, count, n), the same rows as the
+    whole half's (a stored k1 is returned as it is).  A stripped key with no
     seed raises."""
     if kk.k1 is not None:
         return kk.k1
@@ -310,7 +313,7 @@ def ensure_k1(ring, kk):
         raise errors.ParameterError(
             f"a {tuple(kk.k0.shape)} key regenerated on a ring of {len(ring.qp_primes)} limbs "
             f"and N={ring.n}: pass the ring of the basis the key was made in")
-    return _seeded_a(ring, kk.a_seed, int(kk.k0.shape[0]), mont=True)
+    return _seeded_a(ring, kk.a_seed, int(kk.k0.shape[0]), mont=True, rows=rows)
 
 
 def expand_seeded(obj, ring: RingView):

@@ -42,8 +42,9 @@ replicated), and the MAC'd pair's special rows and its own Q rows from the
 ranks whose key block holds them (at most 2 (ka/k + p) rows); in each
 rescale the last limb's coefficient row of every poly, and the rows of the
 output's layout that it lacks when the limb count stops or starts dividing
-4 (a mod_drop too); N int32 words a row.  No rank receives a row of a key,
-and a stripped (seeded) key raises ParameterError.
+4 (a mod_drop too); N int32 words a row.  No rank receives a row of a key;
+a stripped (seeded) key regenerates the rank's own rows of its uniform half
+at each use (ckks_sharded._key: one K7 launch over a row range).
 """
 
 from __future__ import annotations

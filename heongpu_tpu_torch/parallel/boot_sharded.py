@@ -38,7 +38,9 @@ shard equals, bit for bit, the same rows of the unsharded result.
     its MAC rows that its key block did not give it (at most 2 rows a MAC
     row), and each giant's pair rows on its Q~ rows that its MAC rows did
     not give it (at most 2 (ka/k + p) rows); N int32 words a row;
-  * the keys never move: a stripped (seeded) key raises ParameterError.
+  * the keys never move: a stripped (seeded) key, compress_keys=True's
+    set among them, regenerates the rank's own rows of its uniform half at
+    each use (ckks_sharded._key: one K7 launch over a row range).
 """
 
 from __future__ import annotations

@@ -51,15 +51,21 @@ the exchanges written out:
 No rank receives a row of a key: the exchanges move rows of ciphertext
 polys (coefficient rows, MAC'd pairs, the last limb, re-laid rows) and of
 plaintext constants, each between two ranks in one batch_isend_irecv.  A
-stripped (seeded) key raises ParameterError: regenerating its uniform half
-would need the whole key on a rank.  Every rank's shard equals the same rows
-of the unsharded ckks entry points' results.
+stripped (seeded) key (k1 None, placed as it is by shard_pytree_limb_axis)
+regenerates at each use only the rank's own block of its uniform half: word
+(l·d + j)·n + i of the key's draw comes from counter (l·d + j)·n + i, so a
+block of QP rows is a fixed block of the draw's counters, and K7 draws it
+alone (a row range over the key's own QP basis; all rows where the key is
+replicated).  A stripped key with no a_seed raises ParameterError.  Every
+rank's shard equals the same rows of the unsharded ckks entry points'
+results, on stored or stripped keys alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from fractions import Fraction
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -459,12 +465,13 @@ def p_scale_to_qtilde(ctx, poly_q, level: int, pos):
 class _Key:
     """A placed keyswitch key seen from one rank."""
     k0: torch.Tensor      # this rank's rows of each half
-    k1: torch.Tensor
+    k1: Optional[torch.Tensor]   # None for a stripped key: `draw` regenerates them
     lo: int               # the first key row they hold
     sharded: bool
     rows_all: int         # k_gen + p
     k_gen: int
     ka: int               # active Q limbs at the level of use
+    draw: Optional[Callable[[], torch.Tensor]] = None
 
     def pos(self, lay: _Layout, r: int) -> list:
         """Positions in the level's Q~ basis of the key rows rank r MACs: its
@@ -482,7 +489,7 @@ class _Key:
         rank's), contiguous."""
         sel = [(q if q < self.ka else self.k_gen + q - self.ka) - self.lo for q in pos]
         cut = lambda kl: _rows(kl if d == kl.shape[0] else kl[:d], sel).contiguous()
-        return cut(self.k0), cut(self.k1)
+        return cut(self.k0), cut(self.k1 if self.k1 is not None else self.draw())
 
 
 def _key_local(kt, lay: _Layout):
@@ -502,16 +509,22 @@ def _key_local(kt, lay: _Layout):
 
 
 def _key(ctx, kk, lay: _Layout, level: int) -> _Key:
-    """A KSKey or GaloisKeyOne placed on the mesh, checked for use at `level`."""
-    if kk.k1 is None:
-        raise errors.ParameterError("the sharded ops take keys with both halves stored "
-                                    "(expand a stripped key with ringkit.expand_seeded)")
+    """A KSKey or GaloisKeyOne placed on the mesh, checked for use at `level`.
+    A stripped key's k1 is regenerated where its halves are first cut: the
+    rank's own block of QP rows (all rows of a replicated key) from its
+    a_seed, drawn over the key's own QP basis (ringkit.ensure_k1 with a row
+    range: one K7 launch on the card)."""
+    if kk.k1 is None and kk.a_seed is None:
+        raise errors.ParameterError("key has no stored k1 and no a_seed to regenerate it")
     kl0, lo, sharded = _key_local(kk.k0, lay)
-    kl1, _, _ = _key_local(kk.k1, lay)
     rows_all = kk.k0.shape[1]
     k_gen, ka = rows_all - len(ctx.p_primes), ctx.active(level)
     ckks._check_key_level(ctx, ka, k_gen)
-    return _Key(kl0, kl1, lo, sharded, rows_all, k_gen, ka)
+    if kk.k1 is not None:
+        return _Key(kl0, _key_local(kk.k1, lay)[0], lo, sharded, rows_all, k_gen, ka)
+    draw = lambda: ringkit.ensure_k1(lambda: ckks._key_ring(ctx, kk), kk,
+                                     rows=(lo, kl0.shape[1]))
+    return _Key(kl0, None, lo, sharded, rows_all, k_gen, ka, draw)
 
 
 def _digit_count(ctx, ka: int) -> int:

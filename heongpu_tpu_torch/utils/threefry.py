@@ -114,13 +114,19 @@ def _count(shape) -> int:
     return int(np.prod(shape)) if len(shape) else 1
 
 
+def _words_plain(key, start: int, count: int, device) -> torch.Tensor:
+    """The words start .. start + count - 1 of a jax.random.bits draw under
+    `key` (int64 values below 2^32), by int64 torch passes on `device`."""
+    i = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    y0, y1 = hash_torch(key, i >> 32, i & MASK)
+    return y0 ^ y1
+
+
 def bits32_plain(key, shape, device) -> torch.Tensor:
     """The plain version of K7's raw-words mode: the words of
     jax.random.bits(key, shape, uint32) as an int32 tensor with their bits,
     by int64 torch passes on `device`."""
-    i = torch.arange(_count(shape), dtype=torch.int64, device=device)
-    y0, y1 = hash_torch(key, i >> 32, i & MASK)
-    w = (y0 ^ y1).reshape(tuple(shape))
+    w = _words_plain(key, 0, _count(shape), device).reshape(tuple(shape))
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
@@ -287,19 +293,34 @@ def _draw_dims(shape) -> tuple:
     return int(shape[0]), int(np.prod(shape[1:]))
 
 
-def uniform_rns_plain(key, primes, shape, device, moved: bool = False, mont: bool = False):
+def _row_range(rows, L: int) -> tuple:
+    """(first limb, limb count) of a draw's row range over L limbs: all of
+    them when rows is None."""
+    lb, lc = (0, L) if rows is None else (int(rows[0]), int(rows[1]))
+    if lb < 0 or lc <= 0 or lb + lc > L:
+        raise ValueError(f"rows {(lb, lc)} outside a draw of {L} limbs")
+    return lb, lc
+
+
+def uniform_rns_plain(key, primes, shape, device, moved: bool = False, mont: bool = False,
+                      rows=None):
     """The plain version of K7: rng.uniform_rns(key, primes, shape) by int64
     torch passes on `device`: the key split into (hi, lo) keys, 32 bits of
     each per element of the draw layout (L,) + shape, (hi·2^32 + lo) mod p_l.
     moved=True returns a (d, n) draw with its limb axis moved behind the
     digit axis, (d, L, n), as the JAX package's `jnp.moveaxis(…, 0, 1)` gives
-    it; mont=True multiplies by 2^32 mod p_l (Montgomery form).  int32
-    residues."""
+    it; mont=True multiplies by 2^32 mod p_l (Montgomery form).
+    rows=(l_begin, l_count) gives only the limbs [l_begin, l_begin + l_count)
+    of the whole draw over `primes`, hashing only their counters: the same
+    rows as the whole draw's, L = l_count in the output.  int32 residues."""
     from ..ops import modmath as mm
+    lb, lc = _row_range(rows, len(primes))
     k_hi, k_lo = split_np(key, 2)
-    full = (len(primes),) + tuple(shape)
-    hi, lo = bits32_plain(k_hi, full, device), bits32_plain(k_lo, full, device)
-    p = torch.tensor([int(q) for q in primes], dtype=torch.int64,
+    per_limb = _count(shape)
+    out_shape = (lc,) + tuple(shape)
+    hi, lo = (_words_plain(k, lb * per_limb, lc * per_limb, device).reshape(out_shape)
+              for k in (k_hi, k_lo))
+    p = torch.tensor([int(q) for q in primes[lb:lb + lc]], dtype=torch.int64,
                      device=device).reshape((-1,) + (1,) * len(shape))
     out = mm.reduce64(hi, lo, p)
     if mont:
@@ -316,9 +337,11 @@ def _k7_table(primes: tuple, device: str) -> torch.Tensor:
     return mm.u32_to_i32(np.array(rows, np.uint32)).to(device)
 
 
-def uniform_rns_cuda(key, primes, shape, device, moved: bool = False, mont: bool = False):
+def uniform_rns_cuda(key, primes, shape, device, moved: bool = False, mont: bool = False,
+                     rows=None):
     """Launch K7: uniform_rns_plain's function on the card, a few words a
-    thread, written straight into the output layout."""
+    thread, written straight into the output layout; with rows=(l_begin,
+    l_count) one launch over those limbs of the whole draw only."""
     from .. import kernels
     from ..ops import modmath as mm
     if moved and len(shape) != 2:
@@ -329,24 +352,26 @@ def uniform_rns_cuda(key, primes, shape, device, moved: bool = False, mont: bool
     L, (d, n) = len(primes), _draw_dims(shape)
     if L * d * n >= 1 << 32:
         raise ValueError("K7 counts the elements of one draw in 32 bits")
+    lb, lc = _row_range(rows, L)
     dev = _cuda_device(device)
     tab = _k7_table(primes, str(dev))
     k_hi, k_lo = split_np(key, 2)
-    out_shape = (d, L, n) if moved else (L,) + tuple(shape)
+    out_shape = (d, lc, n) if moved else (lc,) + tuple(shape)
     out = torch.empty(out_shape, dtype=mm.I32, device=dev)
     err = kernels.library().hf_threefry_uniform(
-        out.data_ptr(), tab.data_ptr(), k_hi[0], k_hi[1], k_lo[0], k_lo[1], L, d, n,
+        out.data_ptr(), tab.data_ptr(), k_hi[0], k_hi[1], k_lo[0], k_lo[1], L, lb, lc, d, n,
         int(moved), int(mont), kernels.stream_of(out))
     kernels.check(err, "threefry_uniform")
     kernels.launches["threefry_uniform"] += 1
     return out
 
 
-def uniform_rns(key, primes, shape, device, moved: bool = False, mont: bool = False):
+def uniform_rns(key, primes, shape, device, moved: bool = False, mont: bool = False,
+                rows=None):
     """K7 on a CUDA device, its plain version on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
-        return uniform_rns_cuda(key, primes, shape, dev, moved, mont)
+        return uniform_rns_cuda(key, primes, shape, dev, moved, mont, rows)
     if dev.type != "cpu":
         raise ValueError(f"no Threefry kernel for tensors on {dev}")
-    return uniform_rns_plain(key, primes, shape, dev, moved, mont)
+    return uniform_rns_plain(key, primes, shape, dev, moved, mont, rows)

@@ -263,7 +263,7 @@ def test_sharded_bootstrap_matches_reference(minimal, sharded, step):
 def test_sharded_bootstrap_moves_no_key_row(minimal, sharded):
     """The carried keys split where 4 divides their QP extent and stay whole
     elsewhere; the ranks exchanged rows, none of them a key's; a plain-tensor
-    ciphertext raises TypeError and a stripped key ParameterError."""
+    ciphertext raises TypeError and a stripped key with no seed ParameterError."""
     _, _, keys, _, _, _ = minimal
     for r in range(WORLD):
         got = sharded[r]
@@ -273,7 +273,7 @@ def test_sharded_bootstrap_moves_no_key_row(minimal, sharded):
             assert shape[1] == (rows // WORLD if rows % WORLD == 0 else rows), (e, shape, rows)
         assert got["received_rows"] > 0 and got["received_key_rows"] == 0, got
         assert "DTensor" in got["misuse"]["plain_tensor"]
-        assert "both halves" in got["misuse"]["stripped"]
+        assert "no a_seed" in got["misuse"]["stripped"]
 
 
 @pytest.mark.slow

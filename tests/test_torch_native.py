@@ -2,7 +2,19 @@
 (heongpu_tpu_torch/utils/native.py, its own copy of paramgen.cpp) against
 its pure-Python path and against the JAX package's engine and number theory,
 bit for bit.  Skips where the engine cannot be built (no g++), as the JAX
-package's test does."""
+package's test does.
+
+The JAX package builds its engine in place (`g++ -o` straight onto the
+library's path) the first time a process asks for it, and latches a failed
+load for the rest of the process.  Several pytest-xdist workers collect its
+tests/test_native.py at once, so one of them can open a half-written library
+and see no engine.  Where the port's engine loads and the reference's does
+not, `reference_engine` waits for the library to stop changing, clears the
+latch and loads again, a few times, and fails with the reason if it still
+cannot."""
+
+import os
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +33,38 @@ from heongpu_tpu_torch.utils import native, nt  # noqa: E402
 def engine():
     if not native.available():
         pytest.skip(f"no native engine (no C++ toolchain?): {native.unavailable_reason()}")
+
+
+REFERENCE_LOAD_TRIES = 20
+SETTLE_SECONDS = 0.5
+
+
+def _so_state():
+    """(size, mtime) of the reference engine's library, or None while absent."""
+    try:
+        st = os.stat(jnative._SO)
+    except FileNotFoundError:
+        return None
+    return st.st_size, st.st_mtime_ns
+
+
+@pytest.fixture
+def reference_engine(monkeypatch):
+    """The JAX package's engine, loaded: after a load that another worker's
+    in-place build spoilt, wait until its library is present and unchanged
+    over SETTLE_SECONDS, clear the latch (`_tried`) and load again."""
+    if jnative.available():
+        return jnative
+    for _ in range(REFERENCE_LOAD_TRIES):
+        before = _so_state()
+        time.sleep(SETTLE_SECONDS)
+        if before is None or _so_state() != before:
+            continue
+        monkeypatch.setattr(jnative, "_tried", False)
+        if jnative.available():
+            return jnative
+    pytest.fail(f"the JAX package's native engine did not load ({jnative._SO}: "
+                f"{_so_state()}) while the port's did")
 
 
 @pytest.fixture
@@ -45,7 +89,7 @@ def test_generate_primes_match(monkeypatch):
     assert nat == [nt.generate_ntt_primes(bits, 4, n, exclude=ex) for bits, n, ex in cases]
 
 
-def test_roots_and_tables_match(monkeypatch):
+def test_roots_and_tables_match(monkeypatch, reference_engine):
     """The minimal primitive root, the power series and the psi tables of both
     engines and of the pure-Python path, and the port's whole NTT tables built
     on either path against the JAX package's."""

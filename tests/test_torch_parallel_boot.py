@@ -21,11 +21,15 @@ counterpart of tests/test_boot_sharded.py's sharded coeff_to_slot and
 regular_bootstrap), on a set of the same configuration in inv_form, and on
 a base_count 2 configuration (arcsin_order 1, piece_depth 2, Taylor degree
 3, one squaring, limb_align=4: [29, 29] + [28]*22, the shortest such chain
-that builds), each on uniform residues at the last base_count limbs: each
-rank's shard of mod_raise, coeff_to_slot and regular_bootstrap must equal
-the same rows of the port's unsharded CPU path, and no rank may receive a
-row of a key.  On the first set the ranks also run negate, a rotation that
-only the power-of-two chain reaches and switch_key."""
+that builds), and on a compressed set of the first configuration
+(compress_keys=True: every Galois and relin key stripped to k0 and its
+a_seed, each rank regenerating its own block of the uniform halves), each
+on uniform residues at the last base_count limbs: each rank's shard of
+mod_raise, coeff_to_slot and regular_bootstrap must equal the same rows of
+the port's unsharded CPU path on the same keys, and no rank may receive a
+row of a key (a stripped key's regenerated k1 included).  On the first set
+the ranks also run negate, a rotation that only the power-of-two chain
+reaches and switch_key; a stripped Galois key with no seed raises."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -56,7 +60,7 @@ ALIGN = 4
 BC2_ARGS = (256, [29, 29] + [28] * 22)
 BC2_CFG = dict(CFG, base_count=2, arcsin_order=1, piece_depth=2)
 STEPS = ("raised", "t0", "t1", "out")
-CASES = ("aligned", "inv_form", "base_count2")
+CASES = ("aligned", "inv_form", "base_count2", "compressed")
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < ALIGN, reason="needs 4 CPU devices")
 
@@ -85,6 +89,10 @@ def boot_cases(port_keys):
     sk2 = tckks.keygen_secret(ctx2, g, hamming_weight=16)
     keys2 = tboot.generate_bootstrap_keys(ctx2, g, sk2, tboot.BootConfig(**BC2_CFG),
                                           limb_align=ALIGN)
+    compressed = tboot.generate_bootstrap_keys(
+        ctx, g, tckks.keygen_secret(ctx, g, hamming_weight=16), tboot.BootConfig(**CFG),
+        limb_align=ALIGN, compress_keys=True)
+    assert compressed.rk.k1 is None and all(kk.k1 is None for kk in compressed.gk.keys.values())
     swk = tckks.keygen_switch(ctx, g, tckks.keygen_secret(ctx, g), tckks.keygen_secret(ctx, g))
     rows = ctx.k + len(ctx.p_primes)
     pow2 = [s for s in (1 << j for j in range(7))
@@ -96,7 +104,8 @@ def boot_cases(port_keys):
     for name, args, (cx, kk), extra in (
             ("aligned", CTX_ARGS, port_keys, {"swk": swk, "step": pow2[0] + pow2[1]}),
             ("inv_form", CTX_ARGS, (ctx, inv), {}),
-            ("base_count2", BC2_ARGS, (ctx2, keys2), {})):
+            ("base_count2", BC2_ARGS, (ctx2, keys2), {}),
+            ("compressed", CTX_ARGS, (ctx, compressed), {})):
         bc = kk.cfg.base_count
         c = np.stack([r.integers(0, int(q), (2, cx.n)) for q in cx.q_primes[:bc]], axis=1)
         out[name] = (args, cx, kk, torch.from_numpy(c.astype(np.int64)).to(torch.int32), extra)
@@ -233,7 +242,8 @@ def test_sharded_bootstrap_matches_unsharded(unsharded, run, case, step):
 @pytest.mark.parametrize("case", CASES)
 def test_sharded_bootstrap_keeps_keys_split(run, case):
     """Every Galois key is split 4 ways on every rank, the ranks exchanged
-    rows, and none of them was a key's; the misuses raise."""
+    rows, and none of them was a key's; the misuses (a plain-tensor
+    ciphertext, stripped Galois keys with no seed) raise."""
     for r in range(ALIGN):
         got = run[r]["sharded"][case]
         for e, (shape, rows) in got["key_local"].items():

@@ -18,13 +18,15 @@ places each set on a 1 x 4 ('dp', 'limb') mesh and runs, on uniform
 residues placed by shard_array_limb_axis: eval_poly_bsgs, eval_cos_engine
 at the phase -π/2 (a shift) and 0 (none), regular_bootstrap_v2, slim, bit,
 the six gates, the sparse-switch raise and regular_bootstrap_v2 on the
-sparse set, and in less-key mode the second CtoS piece (a giant step
-composed from the power-of-two chain) and regular_bootstrap_v2.  Every
-rank's shard must equal, bit for bit, the same rows of the port's unsharded
-CPU path on the same keys and residues (tests/test_torch_boot_v2_eval.py
-holds that path against the JAX package), and no rank may receive a row of a
-key; a plain-tensor ciphertext raises TypeError and a stripped set
-ParameterError.  The gate set is the JAX package's BootKeysV2 carried back by
+sparse set, in less-key mode the second CtoS piece (a giant step
+composed from the power-of-two chain) and regular_bootstrap_v2, and
+regular_bootstrap_v2 on a compressed set (compress_keys=True: every Galois
+and relin key stripped to k0 and its a_seed).  Every rank's shard must
+equal, bit for bit, the same rows of the port's unsharded CPU path on the
+same keys and residues (tests/test_torch_boot_v2_eval.py holds that path
+against the JAX package), and no rank may receive a row of a key (a
+stripped key's regenerated k1 included); a plain-tensor ciphertext raises
+TypeError and a set stripped with no seeds ParameterError.  The gate set is the JAX package's BootKeysV2 carried back by
 interop.boot_keys_v2_from_numpy, and the sharded NAND gathered from the four
 ranks must equal the JAX package's gate_bootstrap, compiled as one program
 (XLA_FAST) while the ranks run.
@@ -80,12 +82,15 @@ def sides():
     made = {"regular": dict(variant="regular"), "slim": dict(variant="slim", msg_scale=2.0 ** 22),
             "bit": dict(variant="bit"), "gate": dict(variant="gate"),
             "sparse": dict(variant="regular", sparse_hw=16),
-            "less_key": dict(variant="regular", less_key_mode=True)}
+            "less_key": dict(variant="regular", less_key_mode=True),
+            "compressed": dict(variant="regular", compress_keys=True)}
     keys = {name: text.generate_bootstrap_keys_v2(tctx, g, dense if name == "sparse" else sk, cfg,
                                                   limb_align=WORLD, **kw)
             for name, kw in made.items()}
     jgate = _reference_keys(keys["gate"])
     keys["gate"] = _carried(jgate)
+    comp = keys["compressed"]
+    assert comp.rk.k1 is None and all(kk.k1 is None for kk in comp.gk.keys.values())
     r = np.random.default_rng(20)
 
     def x(level, scale):
@@ -109,6 +114,7 @@ def sides():
                    ("regular", "regular", [x(last, keys["sparse"].msg_scale)], ())],
         "less_key": [("piece", "piece", [x(lk.ctos_pieces[1].level, lk.msg_scale)], (1,)),
                      ("regular", "regular", [x(last, lk.msg_scale)], ())],
+        "compressed": [("regular", "regular", [x(last, keys["compressed"].msg_scale)], ())],
     }
     cases = [{"name": name, "keys": keys[name], "calls": calls[name],
               "misuse": name == "regular"} for name in made]
@@ -182,7 +188,7 @@ def test_sharded_eval_cos_engine_matches_unsharded(sides, sharded, phase):
 
 @pytest.mark.parametrize("case,label", [("regular", "regular"), ("slim", "slim"),
                                         ("bit", "bit"), ("sparse", "regular"),
-                                        ("less_key", "regular")])
+                                        ("less_key", "regular"), ("compressed", "regular")])
 def test_sharded_variant_matches_unsharded(sides, sharded, case, label):
     _check_shards(sharded, case, label, _call(sides, case, label))
 
@@ -229,8 +235,8 @@ def test_sharded_variants_move_no_key_row(sides, sharded):
     """Each set's keys split exactly where 4 divides their QP extent (some in
     every set but less-key mode's, whose power-of-two chain, babies included,
     is keyed at level 0), the ranks exchanged rows and none of them a key's;
-    a plain-tensor ciphertext raises TypeError and a stripped set
-    ParameterError."""
+    a plain-tensor ciphertext raises TypeError and a set stripped with no
+    seeds ParameterError."""
     _, keys, cases, _ = sides
     for r in range(WORLD):
         for case in cases:
@@ -242,4 +248,4 @@ def test_sharded_variants_move_no_key_row(sides, sharded):
             assert got["received_rows"] > 0 and got["received_key_rows"] == 0, case["name"]
         misuse = sharded[r]["regular"]["misuse"]
         assert "DTensor" in misuse["plain_tensor"]
-        assert "both halves" in misuse["stripped"]
+        assert "no a_seed" in misuse["stripped"]

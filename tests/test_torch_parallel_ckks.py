@@ -16,7 +16,18 @@ same rows of the JAX package's single-device step (jitted once a shape) and,
 at limb = 4, of the JAX package's own run of that step on its 4-device CPU
 mesh.  No rank may hold more than its block of a sharded key: its local
 shards are the block, no DTensor is gathered in the step (full_tensor and
-redistribute raise), and no row a rank receives is a row of the key."""
+redistribute raise), and no row a rank receives is a row of the key.
+
+In the same start the ranks run the step at limb = 4 on stripped (seeded)
+keys of both shapes: the relin key and a Galois key (applied to the first
+relinearization's output) hold k0 only and an a_seed, one of them at or
+above 2^32 as the reference's compressed sets seed.  Each rank regenerates
+only its own block of a sharded key's uniform half (all of a replicated
+one's).  Every rank's shard must equal the same rows of the JAX package's
+single-device step on the keys that the JAX package regenerates from those
+seeds, and of the port's unsharded CPU path on the same stripped keys; no
+row a rank receives is a row of a key, and a stripped key with no seed
+raises ParameterError."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -30,7 +41,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 
 import torch_parallel_ranks as ranks  # noqa: E402
 from heongpu_tpu.models import ckks as jckks  # noqa: E402
+from heongpu_tpu.models import ringkit as jring  # noqa: E402
+from heongpu_tpu.ops import polyops as jpoly  # noqa: E402
 from heongpu_tpu_torch import interop  # noqa: E402
+from heongpu_tpu_torch.models import ckks as tckks  # noqa: E402
 from test_torch_boot import XLA_FAST  # noqa: E402
 
 torch.set_num_threads(2)
@@ -46,6 +60,10 @@ CASES = {
                                                        alpha=4, p_count=4), 2, True),
 }
 OPS = ("mult0", "relin0", "rescale", "mult1", "relin1")
+# stripped-key cases: the limb = 4 shapes of CASES, (relin key seed, Galois key
+# seed, rotation step); 2^34 + 5 keeps 5 as a Threefry key, as PRNGKey does
+STRIPPED = {f"{name}_stripped": (name, seeds) for name, seeds in (
+    ("method1_limb4", (2 ** 34 + 5, 77, 3)), ("method2_limb4", (91, 2 ** 31 + 3, 5)))}
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < WORLD, reason="needs 4 CPU devices")
 
@@ -87,13 +105,48 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def ranks_running(inputs, tmp_path_factory):
+def stripped_inputs(inputs):
+    """Per stripped case: (the JAX package's context, the base case's
+    residues, the relin key and Galois key as the JAX package holds them
+    stripped (k0, a_seed), and regenerated by it)."""
+    out = {}
+    for name, (base, (rk_seed, gk_seed, step)) in STRIPPED.items():
+        ctx, inp = inputs[base]
+        ring = jckks._ring(ctx)
+        g = jpoly.steps_to_galois_elt(step, N)
+        rk = jring.KSKey(inp["k0"], None, rk_seed)
+        gk = jring.GaloisKeyOne(inp["k0"][::-1].copy(), None, *jpoly.galois_perm_coeff(g, N),
+                                jpoly.galois_perm_ntt(g, N), g, a_seed=gk_seed)
+        out[name] = (ctx, inp, (rk, gk), (jring.expand_seeded(rk, ring),
+                                          jring.expand_seeded(gk, ring)))
+    return out
+
+
+def _port_keys(rk, gk):
+    """The JAX package's stripped keys carried into the port (k1 None)."""
+    fields = ("k0", "k1", "perm_coeff_src", "perm_coeff_neg", "perm_ntt", "galois_elt",
+              "inv_form", "a_seed")
+    return (interop.ks_key_from_numpy(rk.k0, rk.k1, rk.a_seed, device="cpu"),
+            interop.galois_key_from_numpy(
+                {gk.galois_elt: {f: getattr(gk, f) for f in fields}},
+                device="cpu").keys[gk.galois_elt])
+
+
+@pytest.fixture(scope="module")
+def ranks_running(inputs, stripped_inputs, tmp_path_factory):
     """The gloo ranks, started before the JAX side compiles (they need only
     the inputs), as a future of their results."""
     t = lambda a: interop._t(a, "cpu")
     cases = [{"name": name, "ctx_args": args, "ctx_kw": kw, "limb": limb, "batched": batched,
               **{k: t(v) for k, v in inputs[name][1].items()}}
              for name, (args, kw, limb, batched) in CASES.items()]
+    for name, (base, _) in STRIPPED.items():
+        args, kw, limb, batched = CASES[base]
+        _, inp, (rk, gk), _ = stripped_inputs[name]
+        trk, tgk = _port_keys(rk, gk)
+        cases.append({"name": name, "ctx_args": args, "ctx_kw": kw, "limb": limb,
+                      "batched": batched, "c1": t(inp["c1"]), "c2": t(inp["c2"]),
+                      "k0": trk.k0, "k1": None, "a_seed": trk.a_seed, "gk": tgk})
     pool = ThreadPoolExecutor(1)
     yield pool.submit(ranks.spawn, "ckks_step", WORLD, tmp_path_factory.mktemp("par_ckks"),
                       {"cases": cases})
@@ -203,3 +256,69 @@ def test_no_rank_holds_another_block_of_the_key(ref, run, name):
             ((k - 1) + 2 * (k - 1 + p))
     if name == "method2_limb4":
         assert rows % limb == 0 and local[1] == 3, "the Method-II key splits 4 ways"
+
+
+@pytest.fixture(scope="module")
+def stripped_ref(stripped_inputs, ranks_running):
+    """Per stripped case: the JAX package's single-device step on the keys it
+    regenerates from their seeds, with the Galois key applied to relin0 (one
+    compile a case), and the port's unsharded CPU path on the stripped keys."""
+    out = {}
+    for name, (ctx, inp, stripped, (rk, gk)) in stripped_inputs.items():
+        base = jax.jit(_step(ctx), compiler_options=XLA_FAST)(inp["c1"], inp["c2"], rk.k0, rk.k1)
+        want = {k: np.asarray(v) for k, v in base.items()}
+        galois = jax.jit(lambda c: jckks.apply_galois(
+            ctx, jckks.Ciphertext(c, 2, 0, ctx.default_scale), gk).c,
+            compiler_options=XLA_FAST)(base["relin0"])
+        want["galois"] = np.asarray(galois)
+        args, kw, _, _ = CASES[STRIPPED[name][0]]
+        tctx = tckks.make_context(*args, device="cpu", **kw)
+        trk, tgk = _port_keys(*stripped)
+        a, b = (tckks.Ciphertext(interop._t(inp[c], "cpu"), 2, 0, tctx.default_scale)
+                for c in ("c1", "c2"))
+        port = {"mult0": tckks.multiply(tctx, a, b)}
+        port["relin0"] = tckks.relinearize(tctx, port["mult0"], trk)
+        port["rescale"] = tckks.rescale(tctx, port["relin0"])
+        port["mult1"] = tckks.multiply(tctx, port["rescale"], port["rescale"])
+        port["relin1"] = tckks.relinearize(tctx, port["mult1"], trk)
+        port["galois"] = tckks.apply_galois(tctx, port["relin0"], tgk)
+        out[name] = (want, {k: interop.to_numpy(v.c) for k, v in port.items()})
+    return out
+
+
+def _check_stripped(run, name, want):
+    limb = CASES[STRIPPED[name][0]][2]
+    for r in range(WORLD):
+        for op in OPS + ("galois",):
+            local, placements, _ = run[r][name]["steps"][op]
+            blk = _block(want[op].shape[-2], limb, r % limb)
+            np.testing.assert_array_equal(interop.to_numpy(local), want[op][:, blk],
+                                          err_msg=f"rank {r} {op}")
+            assert placements[-1].is_shard() == (want[op].shape[-2] % limb == 0)
+
+
+@pytest.mark.parametrize("name", STRIPPED)
+def test_sharded_step_on_stripped_keys_matches_jax(stripped_ref, run, name):
+    """The step and the Galois key on stripped keys equal the JAX package's
+    single-device run on the keys it regenerates from the same seeds."""
+    _check_stripped(run, name, stripped_ref[name][0])
+
+
+@pytest.mark.parametrize("name", STRIPPED)
+def test_sharded_step_on_stripped_keys_matches_port_unsharded(stripped_ref, run, name):
+    """... and the port's unsharded CPU path on the same stripped keys."""
+    _check_stripped(run, name, stripped_ref[name][1])
+
+
+@pytest.mark.parametrize("name", STRIPPED)
+def test_stripped_keys_stay_stripped_and_split(stripped_inputs, run, name):
+    """A rank holds its block of k0 and no k1; it receives no row of either
+    half (k1 as regenerated whole); a stripped key with no seed raises."""
+    _, inp, _, _ = stripped_inputs[name]
+    d, rows, n = inp["k0"].shape
+    local = (d, rows // WORLD, n) if rows % WORLD == 0 else (d, rows, n)
+    for r in range(WORLD):
+        rec = run[r][name]
+        assert rec["key_local"] == (local, None)
+        assert rec["received_rows"] > 0 and rec["received_key_rows"] == 0
+        assert "no a_seed" in rec["misuse"]["stripped"]

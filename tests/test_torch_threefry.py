@@ -7,9 +7,11 @@ Under JAX's defaults (jax_threefry_partitionable, x64 off): PRNGKey at seeds
 version and by the plain int64 torch version; the facade's new_key, split,
 bits32 and uniform_rns against the reference's rng; the moved, Montgomery
 draw of a seeded key's uniform half against the reference's
-ringkit._regen_a; and the six draws that once raised on a Threefry key
-(normal, randint, permutation, fold_in, gaussian_rns, ternary_rns) against
-jax.random and the reference's facade."""
+ringkit._regen_a; its row ranges (a rank's block of a limb-sharded key)
+against the same rows of the whole draw and of the reference's half; and
+the six draws that once raised on a Threefry key (normal, randint,
+permutation, fold_in, gaussian_rns, ternary_rns) against jax.random and the
+reference's facade."""
 
 import numpy as np
 import pytest
@@ -88,6 +90,44 @@ def test_regenerated_half_matches_the_reference():
         assert tuple(got.shape) == ((4, 64) if d is None else (3, 4, 64))
         if d is not None:
             assert not torch.equal(got.reshape(-1), flat.reshape(-1))
+
+
+# (limbs, row ranges): each block of a 4-way split of 12 limbs (no remainder),
+# an odd block, the last limb alone, and the whole draw
+ROW_RANGES = [(12, [(0, 3), (3, 3), (6, 3), (9, 3)]), (54, [(13, 28), (53, 1), (0, 54)])]
+
+
+@pytest.mark.parametrize("L,ranges", ROW_RANGES, ids=["split4_of_12", "odd_of_54"])
+@pytest.mark.parametrize("shape", [(64,), (3, 64)], ids=["row", "digits"])
+def test_row_range_equals_rows_of_the_whole_draw(L, ranges, shape):
+    """uniform_rns_plain with rows=(first, count) hashes only those limbs'
+    counters and gives the same rows as the whole draw, in both layouts and
+    forms, at a seed the reference's compressed layout would use."""
+    primes = tuple(PRIMES[i % 3] for i in range(L))
+    key = ttf.key_from_seed(2 ** 34 + 13)
+    for moved in ((False, True) if len(shape) == 2 else (False,)):
+        for mont in (False, True):
+            whole = ttf.uniform_rns_plain(key, primes, shape, "cpu", moved, mont)
+            for lb, lc in ranges:
+                got = ttf.uniform_rns(key, primes, shape, "cpu", moved, mont, rows=(lb, lc))
+                want = whole[:, lb:lb + lc] if moved else whole[lb:lb + lc]
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for bad in ((-1, 2), (0, 0), (L - 1, 2)):
+        with pytest.raises(ValueError, match="outside"):
+            ttf.uniform_rns_plain(key, primes, shape, "cpu", rows=bad)
+
+
+def test_row_range_of_a_key_matches_the_reference_rows():
+    """ringkit.ensure_k1 with a row range regenerates the rows of a stripped
+    key's half that the reference's ringkit._regen_a gives for the same seed."""
+    jc = jckks.make_context(64, [29] * 7, ks_type="II", alpha=2, p_count=2)
+    tc = tckks.make_context(64, [29] * 7, device="cpu", ks_type="II", alpha=2, p_count=2)
+    seed, d = 2 ** 43 + 11, 4
+    want = np.asarray(jring._regen_a(jckks._ring(jc), seed, d))
+    kk = tring.KSKey(torch.zeros((d, 9, 64), dtype=torch.int32), None, seed)
+    for lb, lc in ((0, 3), (3, 3), (6, 3), (2, 5)):
+        got = tring.ensure_k1(tckks._ring(tc), kk, rows=(lb, lc))
+        np.testing.assert_array_equal(_u32(got), want[:, lb:lb + lc])
 
 
 def test_draws_not_ported_on_a_threefry_key_raise():

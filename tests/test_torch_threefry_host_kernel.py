@@ -5,8 +5,9 @@ the launch walks its whole grid.  The kernel's counters, Threefry rounds, exact 
 Montgomery step and output layouts must give the plain version's bits
 (threefry.uniform_rns_plain): one row and d rows, in the draw layout and with
 the limb axis moved behind the digit axis, with and without the Montgomery
-form, over seeds whose keys differ in both words.  No jax.  Skips where no
-C++20 host compiler with <ucontext.h> is installed."""
+form, over seeds whose keys differ in both words; and each row range (a
+rank's block of a limb-sharded key) the same rows as the whole draw.  No
+jax.  Skips where no C++20 host compiler with <ucontext.h> is installed."""
 
 import ctypes
 import shutil
@@ -69,14 +70,15 @@ def host_k7_bits(host_lib):
     return host_lib[1]
 
 
-def run_k7(fn, key, primes, shape, moved, mont):
+def run_k7(fn, key, primes, shape, moved, mont, rows=None):
     """The host-compiled K7 with the C arguments uniform_rns_cuda passes."""
     L, (d, n) = len(primes), ttf._draw_dims(shape)
+    lb, lc = ttf._row_range(rows, L)
     tab = ttf._k7_table(tuple(primes), "cpu")
     (h0, h1), (l0, l1) = ttf.split_np(key, 2)
-    out = torch.empty((d, L, n) if moved else (L,) + tuple(shape), dtype=torch.int32)
-    err = fn(out.data_ptr(), tab.data_ptr(), h0, h1, l0, l1, L, d, n, int(moved), int(mont),
-             None)
+    out = torch.empty((d, lc, n) if moved else (lc,) + tuple(shape), dtype=torch.int32)
+    err = fn(out.data_ptr(), tab.data_ptr(), h0, h1, l0, l1, L, lb, lc, d, n, int(moved),
+             int(mont), None)
     return err, out
 
 
@@ -137,7 +139,13 @@ def test_threefry_source_rejects_empty_and_oversized_draws(host_k7):
     out = torch.empty(4, dtype=torch.int32)
     tab = ttf._k7_table((536608769,), "cpu")
     for L, d, n in ((0, 1, 4), (1, 0, 4), (1 << 12, 1 << 10, 1 << 10)):
-        assert host_k7(out.data_ptr(), tab.data_ptr(), 1, 2, 3, 4, L, d, n, 0, 0, None) != 0
+        assert host_k7(out.data_ptr(), tab.data_ptr(), 1, 2, 3, 4, L, 0, L, d, n, 0, 0,
+                       None) != 0
+    # row ranges that are empty or leave the draw; a range of an oversized draw
+    for L, lb, lc, d, n in ((2, 0, 0, 1, 4), (2, -1, 1, 1, 4), (2, 1, 2, 1, 4),
+                            (1 << 12, 0, 1, 1 << 10, 1 << 10)):
+        assert host_k7(out.data_ptr(), tab.data_ptr(), 1, 2, 3, 4, L, lb, lc, d, n, 0, 0,
+                       None) != 0
     # a moved draw's limb axis really moves: the same words, transposed
     primes = tnt.generate_ntt_primes(29, 3, 4096)
     key = ttf.key_from_seed(81)
@@ -145,6 +153,31 @@ def test_threefry_source_rejects_empty_and_oversized_draws(host_k7):
     _, moved = run_k7(host_k7, key, primes, (2, 64), True, False)
     torch.testing.assert_close(moved, flat.transpose(0, 1).contiguous(), rtol=0, atol=0)
     assert not np.array_equal(moved.numpy().ravel(), flat.numpy().ravel())
+
+
+# (limbs, draw shape, row ranges): each rank's block of a 4-way split (no
+# remainder), an odd block and the last limb alone, over d > 1 rows of n not a
+# multiple of a block
+RANGE_CASES = [(12, (3, 1100), [(0, 3), (3, 3), (6, 3), (9, 3), (5, 7), (11, 1)]),
+               (54, (2, 301), [(13, 28), (0, 54), (53, 1)])]
+
+
+@pytest.mark.parametrize("L,shape,ranges", RANGE_CASES, ids=["L12", "L54"])
+def test_threefry_source_row_range_matches_whole_draw(host_k7, L, shape, ranges):
+    """Each row range gives the same rows as K7's whole draw and as the plain
+    version's row range, in both layouts and forms."""
+    primes = tnt.generate_ntt_primes(29, L - 1, 4096) + tnt.generate_ntt_primes(30, 1, 4096)
+    key = ttf.key_from_seed(2 ** 34 + 13)
+    for moved in (False, True):
+        for mont in (False, True):
+            _, whole = run_k7(host_k7, key, primes, shape, moved, mont)
+            for lb, lc in ranges:
+                err, got = run_k7(host_k7, key, primes, shape, moved, mont, rows=(lb, lc))
+                assert err == 0
+                want = whole[:, lb:lb + lc] if moved else whole[lb:lb + lc]
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+                plain = ttf.uniform_rns_plain(key, primes, shape, "cpu", moved, mont, (lb, lc))
+                torch.testing.assert_close(got, plain, rtol=0, atol=0)
 
 
 # raw-words draws: odd counts (a partial last block, counts that are not a multiple

@@ -169,6 +169,22 @@ def keyswitch(rank, world, inp):
     return out
 
 
+def _key_rows(ctx, keys) -> set:
+    """The rows of both halves of every key of `keys` (KSKeys and
+    GaloisKeyOnes, None skipped), a stripped key's k1 regenerated whole on
+    this rank, as bytes."""
+    from heongpu_tpu_torch.models import ckks, ringkit
+    halves = [h for kk in keys if kk is not None
+              for h in (kk.k0, ringkit.ensure_k1(lambda: ckks._key_ring(ctx, kk), kk))]
+    return {bytes(row.numpy()) for h in halves for row in h.reshape(-1, h.shape[-1])}
+
+
+def _stripped_without_seed(kk):
+    """A stripped key with no a_seed to regenerate its k1 from."""
+    import dataclasses
+    return dataclasses.replace(kk, k1=None, a_seed=None)
+
+
 def boot_keys(rank, world, inp):
     """The limb_align=4 bootstrap key set placed on a 4-way limb mesh: each
     Galois and relin key's local shard, and the bytes of the set and of this
@@ -193,15 +209,20 @@ def ckks_step(rank, world, inp):
     inp["cases"]: multiply -> relinearize -> rescale -> multiply (a square) ->
     relinearize on a ('dp', 'limb') mesh of all the ranks, limb_shards
     case["limb"], the ciphertexts placed by ct_sharding (batched when
-    case["batched"]) and the relin key by shard_pytree_limb_axis.  Each rank
-    saves every op's local shard and whether it is sharded on 'limb', its local
-    key shapes, and what it received: the rows of every irecv buffer the step
-    posted, checked here against every row of the whole key."""
+    case["batched"]) and the relin key by shard_pytree_limb_axis; a case with
+    case["a_seed"] takes the relin key stripped (k1 None, regenerated from
+    that seed) and also applies case["gk"], a stripped GaloisKeyOne, to the
+    first relinearization's output ("galois"), and records the error of a
+    stripped key with no seed.  Each rank saves every op's local shard and
+    whether it is sharded on 'limb', its local key shapes, and what it
+    received: the rows of every irecv buffer the step posted, checked here
+    against every row of the whole key (a stripped key's k1 regenerated)."""
     from torch.distributed.tensor import DTensor
 
     from heongpu_tpu_torch.models import ckks
     from heongpu_tpu_torch.parallel import ckks_sharded as cks
     from heongpu_tpu_torch.parallel import mesh as meshlib
+    from heongpu_tpu_torch.utils import errors
 
     received = []
     post = dist.batch_isend_irecv
@@ -219,7 +240,9 @@ def ckks_step(rank, world, inp):
     for case in inp["cases"]:
         ctx = ckks.make_context(*case["ctx_args"], device="cpu", **case["ctx_kw"])
         m = meshlib.make_mesh(world, limb_shards=case["limb"], device="cpu")
-        rk = meshlib.shard_pytree_limb_axis(ckks.KSKey(case["k0"], case["k1"]), m)
+        key = ckks.KSKey(case["k0"], case["k1"], case.get("a_seed"))
+        rk = meshlib.shard_pytree_limb_axis(key, m)
+        gk = meshlib.shard_pytree_limb_axis(case.get("gk"), m)
         place = meshlib.ct_sharding(m, batched=case["batched"]).place
         a = ckks.Ciphertext(place(case["c1"]), 2, 0, ctx.default_scale)
         b = ckks.Ciphertext(place(case["c2"]), 2, 0, ctx.default_scale)
@@ -229,14 +252,23 @@ def ckks_step(rank, world, inp):
         steps["rescale"] = cks.rescale(ctx, steps["relin0"])
         steps["mult1"] = cks.multiply(ctx, steps["rescale"], steps["rescale"])
         steps["relin1"] = cks.relinearize(ctx, steps["mult1"], rk)
-        key_rows = {bytes(row.numpy()) for half in (case["k0"], case["k1"])
-                    for row in half.reshape(-1, half.shape[-1])}
+        if gk is not None:
+            steps["galois"] = cks.apply_galois(ctx, steps["relin0"], gk)
+        key_rows = _key_rows(ctx, [key, case.get("gk")])
         got_rows = [row for buf in received for row in buf.reshape(-1, buf.shape[-1])]
+        misuse = {}
+        if case.get("a_seed") is not None:
+            try:
+                cks.relinearize(ctx, steps["mult0"], _stripped_without_seed(rk))
+            except errors.ParameterError as e:
+                misuse["stripped"] = str(e)
+        local = lambda t: None if t is None else tuple(t.to_local().shape)
         out[case["name"]] = {
             "steps": {op: (ct.c.to_local(), ct.c.placements, ct.level) for op, ct in steps.items()},
-            "key_local": (tuple(rk.k0.to_local().shape), tuple(rk.k1.to_local().shape)),
+            "key_local": (local(rk.k0), local(rk.k1)),
             "received_rows": len(got_rows),
-            "received_key_rows": sum(bytes(r.numpy()) in key_rows for r in got_rows)}
+            "received_key_rows": sum(bytes(r.numpy()) in key_rows for r in got_rows),
+            "misuse": misuse}
     return out
 
 
@@ -251,9 +283,10 @@ def boot_sharded(rank, world, inp):
     case["blocks"] is False; with case["swk"], also negate, rotate by
     case["step"] and switch_key on the raised input.  Each rank saves every result's local shard,
     placements and level, its local key shapes, and what it received,
-    checked here against every row of every key (the rank spies on
-    batch_isend_irecv; full_tensor and redistribute raise), and the errors
-    of a plain-tensor ciphertext and of stripped Galois keys."""
+    checked here against every row of every key, a stripped key's k1
+    regenerated (the rank spies on batch_isend_irecv; full_tensor and
+    redistribute raise), and the errors of a plain-tensor ciphertext and of
+    stripped Galois keys with no seed."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor
@@ -299,9 +332,7 @@ def boot_sharded(rank, world, inp):
             res["rotate"] = cks.rotate(ctx, res["raised"], keys.gk, case["step"])
             res["switch_key"] = cks.switch_key(ctx, res["raised"],
                                                meshlib.shard_pytree_limb_axis(case["swk"], m))
-        halves = [h for kk in list(case["keys"].gk.keys.values()) + [case["keys"].rk]
-                  for h in (kk.k0, kk.k1)]
-        key_rows = {bytes(row.numpy()) for h in halves for row in h.reshape(-1, h.shape[-1])}
+        key_rows = _key_rows(ctx, [*case["keys"].gk.keys.values(), case["keys"].rk])
         got_rows = [row for buf in received for row in buf.reshape(-1, buf.shape[-1])]
         misuse = {}
         try:
@@ -309,9 +340,8 @@ def boot_sharded(rank, world, inp):
                                  keys)
         except TypeError as e:
             misuse["plain_tensor"] = str(e)
-        # a stripped Galois key raises before any exchange
-        gk = ringkit.GaloisKey({e: dataclasses.replace(kk, k1=None, a_seed=7)
-                                for e, kk in keys.gk.keys.items()})
+        # a stripped Galois key with no seed raises before any exchange
+        gk = ringkit.GaloisKey({e: _stripped_without_seed(kk) for e, kk in keys.gk.keys.items()})
         try:
             bs.coeff_to_slot(ctx, res["raised"], dataclasses.replace(keys, gk=gk))
         except errors.ParameterError as e:
@@ -344,10 +374,11 @@ def boot_v2_sharded(rank, world, inp):
     runs V2_CALLS[kind] on the inputs ((c, level, scale) each, c placed by
     shard_array_limb_axis).  Each rank saves every result's local shard,
     placements, level and scale, and what it received, checked here against
-    every row of every key of the case (the rank spies on batch_isend_irecv;
-    full_tensor and redistribute raise); with case["misuse"], the errors of
-    a plain-tensor ciphertext and of a stripped key set on the input of the
-    call labelled "regular"."""
+    every row of every key of the case, a stripped key's k1 regenerated (the
+    rank spies on batch_isend_irecv; full_tensor and redistribute raise);
+    with case["misuse"], the errors of a plain-tensor ciphertext and of a
+    key set stripped with no seeds on the input of the call labelled
+    "regular"."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor
@@ -381,10 +412,8 @@ def boot_v2_sharded(rank, world, inp):
         res = {}
         for label, kind, inputs, args in case["calls"]:
             res[label] = V2_CALLS[kind](bes, bs, ctx, [place(*x) for x in inputs], keys, *args)
-        halves = [h for kk in [*case["keys"].gk.keys.values(), case["keys"].rk,
-                               case["keys"].swk_to_sparse, case["keys"].swk_to_dense]
-                  if kk is not None for h in (kk.k0, kk.k1)]
-        key_rows = {bytes(row.numpy()) for h in halves for row in h.reshape(-1, h.shape[-1])}
+        key_rows = _key_rows(ctx, [*case["keys"].gk.keys.values(), case["keys"].rk,
+                                   case["keys"].swk_to_sparse, case["keys"].swk_to_dense])
         got_rows = [row for buf in received for row in buf.reshape(-1, buf.shape[-1])]
         misuse = {}
         if case.get("misuse"):
@@ -393,7 +422,7 @@ def boot_v2_sharded(rank, world, inp):
                 bes.regular_bootstrap_v2(ctx, ckks.Ciphertext(c, 2, level, scale), keys)
             except TypeError as e:
                 misuse["plain_tensor"] = str(e)
-            strip = lambda kk: dataclasses.replace(kk, k1=None, a_seed=7)
+            strip = _stripped_without_seed
             stripped = dataclasses.replace(
                 keys, gk=ringkit.GaloisKey({e: strip(kk) for e, kk in keys.gk.keys.items()}),
                 rk=strip(keys.rk))

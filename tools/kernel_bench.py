@@ -2,7 +2,9 @@
 """Times the NTT kernel K1 (kernels/csrc/ntt.cu: the whole transform and the
 split entry's passes), the ÷P kernel K6 (kernels/csrc/divround.cu, both
 modes) and the Threefry kernel K7 (kernels/csrc/threefry.cu, both modes) on
-one card, at the shapes chip_smoke.py times them, with chip_smoke.py's own
+one card, at the shapes chip_smoke.py times them (K7 also over one rank's
+block of rows of the depth-48 key, where the root's K7 takes a row range),
+with chip_smoke.py's own
 shape builders and `time_kernels`: each shape held bit for bit against its
 plain version, then timed (device ms from torch.profiler, corrected for
 launches the trace dropped, CUDA events, the plain version) beside its
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import os
 import re
@@ -146,8 +149,14 @@ def shapes(cs, dev, gen, kinds) -> tuple[dict, tuple]:
     # phase 13: the depth-48 chain (K7 at its widest seeded key, 12 digits of 54 limbs)
     ctx = ckks.make_context(N16, cs.BOOT_Q_BITS, device=dev, **cs.BOOT_CTX)
     if "k7" in kinds:
-        out[N16].update(cs.threefry_shapes(list(ctx.qp_primes), (len(ctx.ks2[0].groups), N16),
-                                           dev, "bootstrap key"))
+        from heongpu_tpu_torch.utils import threefry
+        qp, digits = list(ctx.qp_primes), (len(ctx.ks2[0].groups), N16)
+        out[N16].update(cs.threefry_shapes(qp, digits, dev, "bootstrap key"))
+        # one rank's block of the same key on a 4-way limb mesh, where the root's K7
+        # takes a row range
+        if "rows" in inspect.signature(threefry.uniform_rns_cuda).parameters:
+            out[N16].update(cs.threefry_shapes(qp, digits, dev, "bootstrap key, a rank's block",
+                                               rows=cs.k7_row_blocks(len(qp))[1]))
     if "k6" in kinds:
         out[N16].update(cs.div_shapes(ctx.ks2[0].div_stages,
                                       halves(ctx, ctx.ks2[0].div_stages, N16),

@@ -18,11 +18,17 @@ output, the unsharded output's error, the key bytes it holds against the
 set's, its resident and peak memory_allocated, the bytes it receives in one
 run, its wall ms (between a barrier and a synchronize, median of `rounds`)
 and a torch.profiler trace of one run (device busy, the NCCL SendRecv
-kernels' time, the leading kernels and host ops).  Rank 0 prints one JSON
-line with every rank's numbers, the card's name and power limit.
+kernels' time, K7's time, the leading kernels and host ops).  --compress
+makes the set with compress_keys=True (every Galois and relin key stripped
+to k0 and its a_seed): each rank regenerates its own rows of a key's
+uniform half at each use (K7 over a row range), and the record adds K7's
+launches in one sharded and one unsharded run, K7's device ms in an
+unsharded run's trace, and the bytes the same keys take whole (k1 as large
+as k0).  Rank 0 prints one JSON line with every rank's numbers, the card's
+name and power limit.
 
     python3 tools/sharded_boot_bench.py [--ranks R] [--rounds 3]
-                                        [--variant regular|regular_v2|nand]
+                                        [--variant regular|regular_v2|nand] [--compress]
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ def _profile(fn) -> dict:
     top = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1])[:8])
     return {"device_busy_ms": busy / 1e3 if evts else None,
             "nccl_ms": sum(v for k, v in dev.items() if "nccl" in k.lower()),
+            "threefry_ms": sum(v for k, v in dev.items() if "threefry_uniform" in k),
             "device_ms": top(dev), "host_self_ms": top(host)}
 
 
@@ -87,10 +94,17 @@ def _bytes(tree, local: bool) -> int:
 VARIANTS = {"regular_v2": "regular", "nand": "NAND"}   # --variant -> chip_smoke.v2_runs' run
 
 
-def _setup(variant: str, dev, world: int):
-    """(ctx, secret key, key set with limb_align=world, inputs, expected slots,
-    keygen s, unsharded fn, sharded fn); fn(ctx, *inputs, keys) is the entry
-    point."""
+def _whole_key_bytes(keys) -> int:
+    """The bytes of a set's Galois and relin keys with both halves stored (a
+    stripped key's k1 takes its k0's bytes)."""
+    ks = list(keys.gk.keys.values()) + [keys.rk]
+    return sum(2 * k.k0.nbytes for k in ks)
+
+
+def _setup(variant: str, dev, world: int, compress: bool = False):
+    """(ctx, secret key, key set with limb_align=world (compressed when
+    `compress`), inputs, expected slots, keygen s, unsharded fn, sharded fn);
+    fn(ctx, *inputs, keys) is the entry point."""
     import chip_smoke as cs
     from heongpu_tpu_torch.models import ckks, ckks_boot
     from heongpu_tpu_torch.models import ckks_boot_ext as ext
@@ -100,7 +114,7 @@ def _setup(variant: str, dev, world: int):
     if variant == "regular":
         ctx, sk, keys, ct, z, keygen_s = cs.boot_setup(N, cs.BOOT_Q_BITS, cs.BOOT_CTX,
                                                        cs.BOOT_CFG, cs.BOOT_HW, 23, dev,
-                                                       limb_align=world)
+                                                       limb_align=world, compress=compress)
         return (ctx, sk, keys, (ct,), z, keygen_s, ckks_boot.regular_bootstrap,
                 bs.regular_bootstrap)
     ctx = ckks.make_context(N, cs.V2_Q_BITS, device=dev, **cs.V2_CTX)
@@ -114,7 +128,7 @@ def _setup(variant: str, dev, world: int):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     keys = ext.generate_bootstrap_keys_v2(ctx, gen, sk, ext.BootConfigV2(**cs.V2_CFG),
-                                          limb_align=world, **kw)
+                                          limb_align=world, compress_keys=compress, **kw)
     torch.cuda.synchronize()
     return (ctx, sk, keys, inputs, want, time.perf_counter() - t0, fn,
             cs.v2_entry(name, bes))
@@ -124,6 +138,7 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
     import torch.distributed as dist
 
     import chip_smoke as cs
+    from heongpu_tpu_torch import kernels
     from heongpu_tpu_torch.models import ckks
     from heongpu_tpu_torch.parallel import mesh as meshlib
     from heongpu_tpu_torch.parallel import multihost
@@ -131,8 +146,8 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
     multihost.init_process(f"127.0.0.1:{port}", rank, world)
     dev = _device()
     try:
-        ctx, sk, keys, inputs, z, keygen_s, unsharded, sharded_fn = _setup(args.variant, dev,
-                                                                          world)
+        ctx, sk, keys, inputs, z, keygen_s, unsharded, sharded_fn = _setup(
+            args.variant, dev, world, args.compress)
 
         def timed(fn):
             fn()
@@ -146,11 +161,17 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
                 runs.append((time.perf_counter() - t0) * 1e3)
             return sorted(runs)[len(runs) // 2], runs
 
-        whole_bytes = {"keys": _bytes((keys.gk, keys.rk), False), "all": _bytes(keys, False)}
+        whole_bytes = {"keys": _bytes((keys.gk, keys.rk), False), "all": _bytes(keys, False),
+                       "keys_both_halves": _whole_key_bytes(keys)}
         torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
         want = unsharded(ctx, *inputs, keys)
+        torch.cuda.synchronize()
+        k7_unsharded = kernels.launches["threefry_uniform"]
         whole = timed(lambda: unsharded(ctx, *inputs, keys))
         whole_peak = torch.cuda.max_memory_allocated(dev)
+        unsharded_profile = (_profile(lambda: unsharded(ctx, *inputs, keys))
+                             if args.compress else None)
         mesh = meshlib.make_mesh(world)
         skeys = meshlib.shard_pytree_limb_axis(keys, mesh)
         sin = [ckks.Ciphertext(meshlib.shard_array_limb_axis(ct.c, mesh), ct.size, ct.level,
@@ -168,8 +189,10 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
 
         dist.batch_isend_irecv = spy
         torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
         got = sharded_fn(ctx, *sin, skeys)
         torch.cuda.synchronize()
+        k7_sharded = kernels.launches["threefry_uniform"]
         dist.batch_isend_irecv = post
         rows = want.c.shape[-2]
         m = rows // world if rows % world == 0 else rows
@@ -182,6 +205,9 @@ def _rank(rank: int, world: int, port: int, args, out_path: str):
                "keygen_s": keygen_s, "received_bytes": sum(received),
                "key_bytes_local": _bytes((skeys.gk, skeys.rk), True),
                "key_bytes_whole": whole_bytes["keys"],
+               "key_bytes_both_halves": whole_bytes["keys_both_halves"],
+               "compressed": args.compress, "k7_launches_sharded": k7_sharded,
+               "k7_launches_unsharded": k7_unsharded, "unsharded_profile": unsharded_profile,
                "set_bytes_local": _bytes(skeys, True), "set_bytes_whole": whole_bytes["all"],
                "resident_bytes_sharded": resident,
                "peak_bytes_sharded": torch.cuda.max_memory_allocated(dev),
@@ -201,6 +227,8 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=None, help="cards (default: all of them)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--variant", choices=("regular", *VARIANTS), default="regular")
+    ap.add_argument("--compress", action="store_true",
+                    help="the compressed key set (compress_keys=True)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sharded_boot_bench: no CUDA device")
@@ -223,7 +251,7 @@ def main() -> int:
         recs.append(torch.load(f"{out_path}.{r}"))
         os.remove(f"{out_path}.{r}")
     print(json.dumps({"card": _card(), "ranks": world, "n": N, "variant": args.variant,
-                      "per_rank": recs}))
+                      "compress": args.compress, "per_rank": recs}))
     return 0 if all(r["identical"] for r in recs) else 1
 
 
